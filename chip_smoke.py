@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any fault raises and exits nonzero:
+Phases, each printing JSON lines; any fault raises and exits nonzero:
 
-1. build   -- nvcc builds every kernel of the serving path from ``csrc/``.
-2. kernel  -- each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes and a few more (O and LSE).
-3. serve   -- the flagship multimodal Decision Transformer (d_model 512, 6
-              layers, 4 heads of 128, K = 30, bf16, random weights from a
-              seed) evaluated greedily in Minecraft2d through ``evaluate_dt``,
-              16 envs x 64 steps; every attention call must launch the
-              kernel.  Its logits are first held against the same weights
-              on the CPU (plain attention) on a batch of real observations.
-4. timing  -- kernel, plain version and ``F.scaled_dot_product_attention``
-              (a yardstick the port never calls) at the serving and the
-              long-context shapes, beside the bound from bytes and FLOPs;
-              device time with the queue kept full, and the kernel's time
-              per call when Python issues the calls back to back.
+1. build     -- nvcc builds every kernel source in ``csrc/``, all at once.
+2. kernel    -- each kernel against its plain PyTorch version on the card:
+                the forward (O and LSE) and the backward (dQ, dK, dV) at the
+                serving and training paths' shapes and a few more.
+3. reference -- flagship logits on the card against the same weights on the
+                CPU (plain attention), float32 and bf16.
+4. grad      -- the loss and every parameter's gradient of the flagship-width
+                DT on the card against the same weights on the CPU, with
+                ``remat`` off and on.
+5. serve     -- the flagship multimodal Decision Transformer (d_model 512, 6
+                layers, 4 heads of 128, K = 30, bf16, random weights from a
+                seed) evaluated greedily in Minecraft2d through
+                ``evaluate_dt``, 16 envs x 64 steps; every attention call
+                must launch the forward kernel.
+6. train     -- ``bench.py``'s training configuration (B = 128, K = 30,
+                dropout 0.1, bf16 LayerNorm) on a 16 x 6144-step buffer made
+                on the card: warm steps, then timed steps; every step must
+                launch each of the three kernels once per layer.  Then
+                collect -> train -> evaluate in Minecraft2d on the card.
+7. timing    -- each kernel, its plain version and the PyTorch call that
+                computes the same function (``F.scaled_dot_product_attention``
+                and its backward, a yardstick the port never calls) at the
+                training and long-context shapes, beside the bound from
+                bytes and FLOPs.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
@@ -27,6 +37,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -36,24 +47,34 @@ import time
 import torch
 
 SEED = 0
-KERNEL_SOURCES = ("flash_fwd",)
+KERNEL_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
 SERVE_SHAPE = (16, 4, 90, 128)  # (B, H, S, D) of every attention call in serve
+TRAIN_SHAPE = (128, 4, 90, 128)  # ... in a bench.py train step (B = 128)
 LONG_SHAPE = (16, 4, 1026, 128)  # the long-context DT, K = 342
 # (shape, dtype, (block_q, block_k)); (0, 0) is the default the model uses
 KERNEL_CASES = [
     (SERVE_SHAPE, torch.bfloat16, (0, 0)),
+    (TRAIN_SHAPE, torch.bfloat16, (0, 0)),
     (LONG_SHAPE, torch.bfloat16, (0, 0)),
     ((2, 4, 37, 64), torch.bfloat16, (0, 0)),
     ((2, 4, 37, 64), torch.bfloat16, (4, 64)),
     ((2, 4, 37, 64), torch.bfloat16, (16, 32)),
     ((4, 4, 200, 128), torch.float32, (0, 0)),
     ((4, 4, 200, 128), torch.float32, (16, 64)),
+    ((2, 2, 37, 16), torch.bfloat16, (0, 0)),
+    ((2, 2, 37, 16), torch.float32, (4, 64)),
+    ((2, 2, 70, 32), torch.float32, (16, 32)),
 ]
 # O: the kernel and the plain version both round one float32 result to the
 # output dtype, so they may differ by one rounding of it (bf16: 2^-8
 # relative) plus float32 summation order.  LSE is float32 in both.
 O_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}  # (atol, rtol)
 LSE_ATOL = 1e-4
+# dQ, dK, dV: both sides sum the same float32 terms in other orders, and in
+# bf16 both round P and dS to bf16 before the products, where a float32
+# difference in the last place can flip a rounding; the largest difference
+# is held to this share of the tensor's largest magnitude (at least 1).
+GRAD_TOL_OF_MAX = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -76,22 +97,23 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def qkv(shape, dtype, seed):
+def randn(shape, dtype, seed, n=3):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(n)]
 
 
 def cuda_ms(fn, reps: int, prefill: bool = True) -> float:
     """Device ms per call over ``reps`` back-to-back calls.  With ``prefill``
-    the stream first sleeps ~25 ms, so the host has queued every call before
-    the first runs and host overhead leaves no gaps; without it the time is
-    what back-to-back calls from Python achieve."""
+    the stream first sleeps ~100 ms, so the host has queued every call before
+    the first runs and host overhead leaves no gaps (an autograd backward
+    costs the host some 0.3 ms a call); without it the time is what
+    back-to-back calls from Python achieve."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if prefill:
-        torch.cuda._sleep(50_000_000)  # clock cycles
+        torch.cuda._sleep(200_000_000)  # clock cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -100,15 +122,33 @@ def cuda_ms(fn, reps: int, prefill: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(shape, dtype):
-    """(ms, 'bytes' | 'operations'): q, k, v read once, o and lse written
-    once; QK^T and PV over the S(S+1)/2 causal pairs, 2 FLOPs a MAC."""
+def attention_bound(kernel: str, shape, dtype):
+    """(ms, 'bytes' | 'operations') of one kernel call: every (B, H, S, D)
+    input read once and every output written once, with the float32 (B, H, S)
+    vectors; FLOPs over the S(S+1)/2 causal pairs, 2 a MAC: QK^T and PV in
+    the forward, QK^T, dO V^T and dS K for dQ, and those with P^T dO and
+    dS^T Q, less dS K, for dK/dV."""
     B, H, S, D = shape
     elem = torch.finfo(dtype).bits // 8
-    nbytes = 4 * B * H * S * D * elem + B * H * S * 4
-    flops = 4 * B * H * D * S * (S + 1) // 2
+    mats, vecs, macs = {"flash_fwd": (4, 1, 2), "flash_dq": (5, 2, 3),
+                        "flash_dkv": (6, 2, 4)}[kernel]
+    nbytes = mats * B * H * S * D * elem + vecs * B * H * S * 4
+    flops = 2 * macs * B * H * D * S * (S + 1) // 2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts():
+    from mmtrl_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def read_counts():
+    from mmtrl_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.launches, "flash_dq": fa.dq_launches,
+            "flash_dkv": fa.dkv_launches}
 
 
 def phase_build():
@@ -128,15 +168,16 @@ def phase_build():
 
 
 def phase_kernel():
+    """Every kernel against its plain version; returns the largest error of
+    each at the training shape."""
     from mmtrl_tpu_torch.ops import flash_attention as fa
 
     errs = {}
     for i, (shape, dtype, blocks) in enumerate(KERNEL_CASES):
-        q, k, v = qkv(shape, dtype, SEED + i)
+        q, k, v, do = randn(shape, dtype, SEED + i, 4)
         o, lse = fa.flash_attention_fwd(q, k, v, *blocks)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
-        torch.cuda.synchronize()
         atol, rtol = O_TOL[dtype]
         d_o = (o.float() - o_ref.float()).abs()
         err_o, err_lse = d_o.max().item(), (lse - lse_ref).abs().max().item()
@@ -144,43 +185,78 @@ def phase_kernel():
         emit("kernel", kernel="flash_fwd", shape=list(shape), dtype=str(dtype),
              blocks=list(blocks), max_abs_err_o=err_o, max_abs_err_lse=err_lse,
              o_tol=[atol, rtol], lse_atol=LSE_ATOL, ok=ok)
-        check(ok, f"flash_fwd disagrees with its plain version at {shape} {dtype} {blocks}")
-        check(math.isfinite(err_o), "non-finite output")
-        errs[(shape, dtype, blocks)] = err_o
-    return errs[(SERVE_SHAPE, torch.bfloat16, (0, 0))]
+        check(ok and math.isfinite(err_o),
+              f"flash_fwd disagrees with its plain version at {shape} {dtype} {blocks}")
+
+        # Both sides of the backward get the same lse and delta.
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, *blocks)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, *blocks)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+        tol = GRAD_TOL_OF_MAX[dtype]
+        bwd_errs = {}
+        for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            bwd_errs[name] = err
+            check(out.dtype == q.dtype and math.isfinite(err) and err <= tol * scale,
+                  f"{name} disagrees with the plain backward at {shape} {dtype} {blocks}: "
+                  f"{err} against {tol} x {scale}")
+        emit("kernel", kernel="flash_dq+flash_dkv", shape=list(shape), dtype=str(dtype),
+             blocks=list(blocks), **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()},
+             tol_of_max=tol, ok=True)
+        if (shape, dtype, blocks) == (TRAIN_SHAPE, torch.bfloat16, (0, 0)):
+            errs = {"flash_fwd": err_o, "flash_dq": bwd_errs["dq"],
+                    "flash_dkv": max(bwd_errs["dk"], bwd_errs["dv"])}
+    return errs
 
 
-def flagship_cfg(compute_dtype: str):
+def flagship_cfg(compute_dtype: str, **changes):
     from mmtrl_tpu_torch.models.decision_transformer import DTConfig
 
     # scripts/dt_minecraft.py's defaults; dropout is off in evaluation.
-    return DTConfig(num_actions=4, context_len=30, d_model=512, n_layers=6, n_heads=4,
-                    max_timestep=64, compute_dtype=compute_dtype)
+    cfg = DTConfig(num_actions=4, context_len=30, d_model=512, n_layers=6, n_heads=4,
+                   max_timestep=64, compute_dtype=compute_dtype)
+    return dataclasses.replace(cfg, **changes)
+
+
+def observation_batch(B: int):
+    """B context windows of real Minecraft2d observations, on the CPU."""
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+
+    env = Minecraft2d(device="cpu")
+    obs, _ = env.reset(B * 30, torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    return (
+        torch.rand(B, 30, generator=g) * 10.0,
+        obs.reshape(B, 30, 2, 84, 84),
+        torch.randint(0, 4, (B, 30), generator=g),
+        torch.arange(30).repeat(B, 1),
+    )
+
+
+def twin_models(cfg):
+    """The same random weights as a card model and a CPU model."""
+    from mmtrl_tpu_torch.models.decision_transformer import DecisionTransformer
+
+    torch.manual_seed(SEED)
+    model = DecisionTransformer(cfg)
+    cpu_model = DecisionTransformer(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    return model, cpu_model
 
 
 def phase_reference():
     """Flagship logits on the card (kernel) against the same weights on the
     CPU (plain attention), on two context windows of real observations."""
-    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
-    from mmtrl_tpu_torch.models.decision_transformer import DecisionTransformer
-
-    env = Minecraft2d(device="cpu")
-    obs, _ = env.reset(2 * 30, torch.Generator().manual_seed(SEED))
-    g = torch.Generator().manual_seed(SEED + 1)
-    batch = (
-        torch.rand(2, 30, generator=g) * 10.0,
-        obs.reshape(2, 30, 2, 84, 84),
-        torch.randint(0, 4, (2, 30), generator=g),
-        torch.arange(30).repeat(2, 1),
-    )
+    batch = observation_batch(2)
     # float32 runs in full float32 on both sides (no TF32); bfloat16 rounds
     # every product on both sides, in other places and orders.
     for compute_dtype, atol_of_max in (("float32", 1e-3), ("bfloat16", 5e-2)):
-        torch.manual_seed(SEED)
-        cfg = flagship_cfg(compute_dtype)
-        model = DecisionTransformer(cfg).eval()
-        cpu_model = DecisionTransformer(cfg, device="cpu").eval()
-        cpu_model.load_state_dict(model.state_dict())
+        model, cpu_model = twin_models(flagship_cfg(compute_dtype))
+        model.eval()
+        cpu_model.eval()
         with torch.inference_mode():
             out = model(*(t.cuda() for t in batch)).cpu()
             ref = cpu_model(*batch)
@@ -191,11 +267,56 @@ def phase_reference():
         check(ok, f"flagship logits on the card disagree with the CPU ({compute_dtype})")
 
 
+def phase_grad():
+    """Loss and gradients of the flagship-width DT, card against CPU, in train
+    mode with dropout 0: float32 (no TF32 on either side), then bf16 compute
+    with bf16 LayerNorm with remat off and on."""
+    from mmtrl_tpu_torch.algos.dt.train import dt_loss
+
+    rtg, states, actions, ts = observation_batch(2)
+    mask = torch.ones(2, 30, dtype=torch.bool)
+    mask[1, :7] = False
+    # (compute dtype, remat, tolerance): float32 differs by summation order
+    # only; bf16 rounds every product and the gradient flows back through six
+    # layers of them, rounded in other places on the two sides.
+    cases = (("float32", False, 1e-3), ("bfloat16", False, 5e-2), ("bfloat16", True, 5e-2))
+    for compute_dtype, remat, tol in cases:
+        ln = "bfloat16" if compute_dtype == "bfloat16" else "float32"
+        cfg = flagship_cfg(compute_dtype, ln_dtype=ln, dropout=0.0, remat=remat)
+        model, cpu_model = twin_models(cfg)
+        sides = []
+        reset_counts()
+        for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+            m.train()
+            b = [t.to(dev) for t in (rtg, states, actions, ts, mask)]
+            loss, _ = dt_loss(m(*b[:4]), b[2], b[4])
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            sides.append((loss.item(), [g.float().cpu() for g in grads]))
+        counts = read_counts()
+        (loss_c, g_c), (loss_r, g_r) = sides
+        worst, worst_name = 0.0, ""
+        for (name, _), a, b in zip(model.named_parameters(), g_c, g_r):
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            if not math.isfinite(rel) or rel > worst:
+                worst, worst_name = rel, name
+        layers = cfg.n_layers
+        expected = {"flash_fwd": layers * (2 if remat else 1), "flash_dq": layers,
+                    "flash_dkv": layers}
+        loss_err = abs(loss_c - loss_r)
+        ok = (math.isfinite(loss_c) and loss_err <= tol * abs(loss_r)
+              and worst <= tol and counts == expected)
+        emit("grad", model="flagship DT", compute_dtype=compute_dtype, remat=remat,
+             loss_card=loss_c, loss_cpu=loss_r, worst_grad_err_of_max=worst,
+             worst_param=worst_name, tol_of_max=tol, launches=counts,
+             expected_launches=expected, ok=ok)
+        check(ok, f"flagship gradients on the card disagree with the CPU "
+                  f"({compute_dtype}, remat={remat})")
+
+
 def phase_serve():
     from mmtrl_tpu_torch.algos.dt import evaluate_dt
     from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
     from mmtrl_tpu_torch.models.decision_transformer import DecisionTransformer
-    from mmtrl_tpu_torch.ops import flash_attention as fa
 
     cfg = flagship_cfg("bfloat16")
     num_envs, num_steps = 16, 64
@@ -211,19 +332,98 @@ def phase_serve():
         torch.cuda.synchronize()
         return {k: float(v) for k, v in out.items()}, time.perf_counter() - t0
 
-    fa.launches = 0
+    reset_counts()
     stats, first_s = run()
-    launches = fa.launches
+    counts = read_counts()
+    launches = counts["flash_fwd"]
     _, second_s = run()
     emit("serve", model="flagship DT bf16", num_envs=num_envs, num_steps=num_steps,
          kernel_launches=launches, expected_launches=cfg.n_layers * num_steps,
          wall_s_first=first_s, wall_s_second=second_s, **stats)
-    check(launches == cfg.n_layers * num_steps, f"{launches} kernel launches")
+    check(counts == {"flash_fwd": cfg.n_layers * num_steps, "flash_dq": 0, "flash_dkv": 0},
+          f"{counts} kernel launches")
     check(all(math.isfinite(v) for v in stats.values()), "non-finite episode stats")
     # every episode ends within MAX_ITER = 30 steps, so 64 steps end >= 2 per env
     check(stats["eval/episodes"] >= 2 * num_envs, "too few finished episodes")
     check(1.0 <= stats["eval/episodic_length"] <= 30.0, "episode length out of range")
     return launches
+
+
+def phase_train(smi: str):
+    """bench.py's training step on the card, then collect -> train ->
+    evaluate.  Returns the launches of the timed bench.py-config run."""
+    from mmtrl_tpu_torch.algos.dt import (
+        DTTrainConfig,
+        collect_trajectories,
+        create_dt_state,
+        evaluate_dt,
+        make_dt_train_step,
+        make_dt_train_steps,
+    )
+    from mmtrl_tpu_torch.algos.dt.data import random_buffer
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+
+    B, K, warm, timed = 128, 30, 3, 20
+    cfg = DTConfig(num_actions=4, context_len=K, d_model=512, n_layers=6, n_heads=4,
+                   dropout=0.1, max_timestep=64, ln_dtype="bfloat16")
+    tcfg = DTTrainConfig(batch_size=B, total_steps=1000)
+    buffer = random_buffer(16, 6144, torch.Generator(device="cuda").manual_seed(SEED))
+    state = create_dt_state(cfg, tcfg, seed=SEED)
+    step = make_dt_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.manual_seed(SEED)  # dropout
+    before = [p.detach().clone() for p in state.model.parameters()]
+    per_step = {"flash_fwd": cfg.n_layers, "flash_dq": cfg.n_layers, "flash_dkv": cfg.n_layers}
+    losses = []
+    reset_counts()
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        counts = read_counts()
+        state, metrics = step(state, buffer.sample(gen, B, K))
+        after = read_counts()
+        check({k: after[k] - counts[k] for k in after} == per_step,
+              f"train step {i} launched {after} after {counts}")
+        losses.append(metrics["dt/loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+    counts = read_counts()
+    losses = [float(x) for x in losses]
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
+    n_params = len(before)
+    emit("train", config="bench.py flagship", batch_size=B, context_len=K,
+         steps_warm=warm, steps_timed=timed, step_s=step_s,
+         tokens_per_s=B * 3 * K / step_s, launches=counts,
+         expected_launches={k: v * (warm + timed) for k, v in per_step.items()},
+         loss_first=losses[0], loss_last=losses[-1],
+         params_changed=changed, params=n_params, card=smi,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    check(changed == n_params, f"only {changed} of {n_params} parameters changed")
+    del buffer
+
+    # collect -> train -> evaluate, the whole offline path on the card
+    env = Minecraft2d()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    data = collect_trajectories(env, 320, 16, generator=gen)
+    collect_s = time.perf_counter() - t0
+    state, metrics = make_dt_train_steps(cfg, B, K, 5)(state, data, gen)
+    loss = float(metrics["dt/loss"])
+    out = evaluate_dt(env, cfg, state.model, 10.0, num_envs=16, num_steps=40,
+                      rtg_clip=10.0, generator=gen)
+    stats = {k: float(v) for k, v in out.items()}
+    emit("collect_train_evaluate", env="minecraft", collect_steps=320, num_envs=16,
+         collect_s=collect_s, buffer_states=list(data.states.shape),
+         episodes_collected=int(data.episode_starts.sum()), train_steps=5,
+         loss=loss, still_training=state.model.training, **stats)
+    check(math.isfinite(loss), "non-finite loss on collected data")
+    check(state.model.training, "evaluate_dt left the model in eval mode")
+    check(all(math.isfinite(v) for v in stats.values()) and stats["eval/episodes"] >= 16,
+          "evaluation after training went wrong")
+    return counts, step_s
 
 
 def phase_timing(smi: str):
@@ -232,25 +432,48 @@ def phase_timing(smi: str):
     from mmtrl_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for label, shape, reps in (("serve", SERVE_SHAPE, 200), ("long", LONG_SHAPE, 20)):
-        q, k, v = qkv(shape, torch.bfloat16, SEED)
-        bound_ms, bound_by = attention_bound(shape, torch.bfloat16)
-        blocks_ms = {
-            f"{bq}x{bk}": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bq, bk), reps)
-            for bq in fa.BLOCK_Q_CHOICES for bk in fa.BLOCK_K_CHOICES
+    for label, shape, reps in (("serve", SERVE_SHAPE, 200), ("train", TRAIN_SHAPE, 100),
+                               ("long", LONG_SHAPE, 10)):
+        dt = torch.bfloat16
+        q, k, v, do = randn(shape, dt, SEED, 4)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        bwd_args = (q, k, v, do, lse, delta)
+        kernels = {
+            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v),
+                          lambda: fa.flash_attention_fwd_plain(q, k, v),
+                          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
         }
-        row = dict(
-            ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps),
-            ms_from_python=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), reps, False),
-            plain_ms=cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v), reps),
-            library_ms=cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps
-            ),
-            bound_ms=bound_ms, bound_by=bound_by,
-        )
-        emit("timing", kernel="flash_fwd", shape_name=label, shape=list(shape),
-             dtype="bfloat16", card=smi, blocks_ms=blocks_ms, **row)
-        rows[label] = row
+        if label != "serve":  # serving runs no backward
+            # SDPA's backward computes dQ, dK and dV in one call: the
+            # yardstick of both backward kernels
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+            def library_bwd():
+                return torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True)
+
+            kernels["flash_dq"] = (lambda: fa.flash_attention_dq(*bwd_args),
+                                   lambda: fa.flash_attention_bwd_plain(*bwd_args), library_bwd)
+            kernels["flash_dkv"] = (lambda: fa.flash_attention_dkv(*bwd_args),
+                                    lambda: fa.flash_attention_bwd_plain(*bwd_args), library_bwd)
+        for name, (kernel, plain, library) in kernels.items():
+            bound_ms, bound_by = attention_bound(name, shape, dt)
+            row = dict(
+                ms=cuda_ms(kernel, reps),
+                ms_from_python=cuda_ms(kernel, reps, False),
+                plain_ms=cuda_ms(plain, reps),
+                library_ms=cuda_ms(library, reps),
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            if name == "flash_fwd" and label != "train":
+                row["blocks_ms"] = {
+                    f"{bq}x{bk}": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bq, bk), reps)
+                    for bq in fa.BLOCK_Q_CHOICES for bk in fa.BLOCK_K_CHOICES
+                }
+            emit("timing", kernel=name, shape_name=label, shape=list(shape),
+                 dtype="bfloat16", card=smi, **row)
+            rows[(name, label)] = row
     return rows
 
 
@@ -262,20 +485,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = card()
+    t_start = time.perf_counter()
     phase_build()
-    max_abs_err = phase_kernel()
+    errs = phase_kernel()
     phase_reference()
-    launches = phase_serve()
-    timing = phase_timing(smi)["serve"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mmtrl_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mmtrl_tpu/ops/flash_attention.py:52",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]}), flush=True)
+    phase_grad()
+    phase_serve()
+    launches, _ = phase_train(smi)
+    timing = phase_timing(smi)
+    sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
+               "flash_dkv": ("flash_dkv.cu", 188)}
+    kernels = []
+    for name, (src, line) in sources.items():
+        t = timing[(name, "train")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"mmtrl_tpu_torch/csrc/{src}",
+            "replaces": f"mmtrl_tpu/ops/flash_attention.py:{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

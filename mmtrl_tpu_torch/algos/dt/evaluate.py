@@ -48,7 +48,17 @@ def evaluate_dt(
     device = resolve_device(device)
     if env.device != device:
         raise ValueError(f"env is on {env.device}, evaluation on {device}")
+    was_training = model.training
     model.eval()
+    try:
+        return _rollout(env, cfg, model, target_return, num_envs, num_steps, greedy,
+                        rtg_clip, generator, device)
+    finally:
+        model.train(was_training)  # the caller's mode, also when the rollout raises
+
+
+def _rollout(env, cfg, model, target_return, num_envs, num_steps, greedy, rtg_clip,
+             generator, device) -> Dict[str, torch.Tensor]:
     K = cfg.context_len
 
     obs, env_state = env.reset(num_envs, generator)

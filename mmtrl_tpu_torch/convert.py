@@ -9,15 +9,19 @@ the ``state_dict`` key with its leaf renamed and, for kernels, transposed:
 - ``bias`` copies over.
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, which
-checks that every name and shape lines up.
+checks that every name and shape lines up.  ``adam_state_from_flax`` maps an
+optax ``ScaleByAdamState`` the same way, so a JAX train state carries over
+whole.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from mmtrl_tpu_torch.ops.fused_optim import ScaleByAdamState
 
 
 def _leaf(name: str, value: np.ndarray):
@@ -51,3 +55,22 @@ def dt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+def adam_state_from_flax(count: Any, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                         names: Sequence[str]):
+    """``ops.fused_optim.ScaleByAdamState`` of an optax ``ScaleByAdamState``
+    (``count``, and ``mu`` and ``nu`` trees shaped like the params), its
+    moments in the order of ``names``, the model's ``named_parameters()``."""
+    moments = [dt_params_from_flax(tree) for tree in (mu, nu)]
+    for sd in moments:
+        if set(sd) != set(names):
+            raise ValueError(
+                f"moments do not match the parameters: missing "
+                f"{sorted(set(names) - set(sd))}, unexpected {sorted(set(sd) - set(names))}"
+            )
+    return ScaleByAdamState(
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+        mu=[moments[0][n] for n in names],
+        nu=[moments[1][n] for n in names],
+    )

@@ -3,7 +3,8 @@
 Parameters are float32 and keep flax's names and auto-numbering
 (``Conv_0``, ``Dense_0``) so ``convert.dt_params_from_flax`` maps a flax
 tree onto them one to one.  As flax does with ``dtype=``, each layer runs
-in the dtype of its input and casts its float32 parameters to it.  Init
+in the dtype of its input and casts its float32 parameters to it, and adds
+the bias after the product, so a bf16 layer rounds twice as flax's does.  Init
 follows the reference's CleanRL convention: orthogonal weights, zero biases.
 
 Layout is NCHW, PyTorch's own; ``AtariTower`` permutes to NHWC before its
@@ -36,7 +37,7 @@ class Dense(nn.Linear):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 class Conv(nn.Conv2d):
@@ -52,7 +53,8 @@ class Conv(nn.Conv2d):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride)
+        return y + self.bias.to(x.dtype)[:, None, None]
 
 
 # (widths, kernels, strides) per tower size (the reference's conv_factory,

@@ -10,8 +10,11 @@ from the state-token outputs.  Module names follow the flax tree, so
 
 Parameters stay float32; ``compute_dtype`` is what the products run in and
 ``ln_dtype`` what LayerNorm emits, with the JAX model's casts.  LayerNorm
-statistics are float32 either way and eps is flax's 1e-6.  Dense FFN only:
-``moe_experts > 0`` and ``seq_axis`` are not ported yet.
+follows flax's arithmetic: float32 statistics, the variance as
+max(0, E[x^2] - E[x]^2), eps 1e-6.  Dropout is active in ``train()`` mode and
+draws from the global torch RNG, which ``torch.utils.checkpoint`` restores,
+so with ``remat`` the recomputed forward draws the same masks.  Dense FFN
+only: ``moe_experts > 0`` and ``seq_axis`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmtrl_tpu_torch import DeviceLike, resolve_device
 from mmtrl_tpu_torch.models.common import AtariTower, Dense
@@ -47,7 +51,7 @@ class DTConfig:
     conv_type: str = "big"
     fusion_type: str = "sum"
     compute_dtype: str = "bfloat16"
-    remat: bool = False  # a training-memory knob: the forward is the same
+    remat: bool = False  # recompute each block's activations in the backward
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_aux_coef: float = 0.01
@@ -66,14 +70,19 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm``: float32 statistics, eps 1e-6, output in ``dtype``."""
+    """flax ``nn.LayerNorm``: float32 statistics with the one-pass variance
+    max(0, E[x^2] - E[x]^2), eps 1e-6, output in ``dtype``."""
 
     def __init__(self, d: int, dtype: torch.dtype, device: torch.device):
         super().__init__(d, eps=LN_EPS, device=device)
         self.out_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(self.out_dtype)
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.out_dtype)
 
 
 class Embed(nn.Embedding):
@@ -86,17 +95,18 @@ class Embed(nn.Embedding):
 
 
 class MultimodalStateEncoder(nn.Module):
-    """(N, 2, 84, 84) -> (N, d_model): video tower on channel 0, audio
-    tower on channel 1, fused and projected."""
+    """(N, C, 84, 84) -> (N, d_model): video tower on channel 0, audio
+    tower on the C - 1 channels after it (one MFCC plane in Minecraft2d,
+    Skeleton+'s stereo pair), fused and projected.  ``state_channels`` is C:
+    the JAX module reads it off the example batch at ``init``."""
 
     def __init__(self, d_model: int, conv_type: str, fusion_type: str,
-                 dtype: torch.dtype, device: DeviceLike = None):
+                 dtype: torch.dtype, device: DeviceLike = None, state_channels: int = 2):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.fusion_type = dtype, fusion_type
         self.video_net = AtariTower(conv_type, 1, device=device)
-        # Minecraft2d's one MFCC plane (Skeleton+'s stereo pair is not ported)
-        self.audio_net = AtariTower(conv_type, 1, device=device)
+        self.audio_net = AtariTower(conv_type, state_channels - 1, device=device)
         fused = self.video_net.feature_size * (1 if fusion_type == "sum" else 2)
         self.proj = Dense(fused, d_model, 1.0, device=device)
 
@@ -152,7 +162,10 @@ class Block(nn.Module):
 
 
 class DecisionTransformer(nn.Module):
-    def __init__(self, cfg: DTConfig, device: DeviceLike = None):
+    """``state_channels`` is the channel count of a multimodal state (2 in
+    Minecraft2d, 3 in Skeleton+)."""
+
+    def __init__(self, cfg: DTConfig, device: DeviceLike = None, state_channels: int = 2):
         super().__init__()
         if cfg.moe_experts:
             raise NotImplementedError("MoE FFN (moe_experts > 0) is not ported yet")
@@ -164,7 +177,8 @@ class DecisionTransformer(nn.Module):
         d = cfg.d_model
         if cfg.state_kind == "multimodal":
             self.state_encoder = MultimodalStateEncoder(
-                d, cfg.conv_type, cfg.fusion_type, self.dtype, device=device
+                d, cfg.conv_type, cfg.fusion_type, self.dtype, device=device,
+                state_channels=state_channels,
             )
         elif cfg.state_kind == "vector":
             self.state_encoder = Dense(cfg.state_dim, d, 1.0, device=device)
@@ -204,8 +218,10 @@ class DecisionTransformer(nn.Module):
             [rtg_emb + time_emb, state_emb + time_emb, act_emb + time_emb], dim=2
         ).reshape(B, 3 * K, cfg.d_model)
         x = self.drop(tokens)
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         x = self.ln_f(x)
         logits = self.action_head(x[:, 1::3].to(dt))  # state positions
         return logits.float()

@@ -114,3 +114,27 @@ def test_evaluate_dt_sampling_and_device_checks():
     assert torch.isfinite(runs[0]["eval/episodic_return"])
     with pytest.raises(ValueError, match="env is on"):
         evaluate_dt(env, cfg, model, 10.0, device="meta")
+
+
+def test_evaluate_dt_restores_the_callers_mode():
+    cfg = DTConfig(**dataclasses.asdict(TINY))
+    torch.manual_seed(0)
+    model = DecisionTransformer(cfg, device="cpu")
+    env = Minecraft2d(device="cpu")
+    modes = []
+    model.register_forward_pre_hook(lambda m, args: modes.append(m.training))
+    assert model.training
+    evaluate_dt(env, cfg, model, 10.0, num_envs=2, num_steps=3, device="cpu")
+    assert model.training and modes == [False] * 3  # eval inside, train after
+    model.eval()
+    evaluate_dt(env, cfg, model, 10.0, num_envs=2, num_steps=1, device="cpu")
+    assert not model.training
+
+    def fail(state, action):
+        raise RuntimeError("env step failed")
+
+    model.train()
+    env._step_env = fail
+    with pytest.raises(RuntimeError, match="env step failed"):
+        evaluate_dt(env, cfg, model, 10.0, num_envs=2, num_steps=2, device="cpu")
+    assert model.training

@@ -1,12 +1,16 @@
 """Parity of the port's causal attention (mmtrl_tpu_torch/ops/flash_attention.py)
-with the JAX reference, on the CPU; the kernel itself is compared on the
-card (tests/test_torch_cuda.py and chip_smoke.py)."""
+with the JAX package on the CPU: the plain forward and backward against the
+Pallas kernels run in interpret mode and against the jnp reference; the
+kernels themselves are compared on the card (tests/test_torch_cuda.py and
+chip_smoke.py)."""
 
+import functools
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +21,25 @@ from mmtrl_tpu_torch.ops import _build
 from mmtrl_tpu_torch.ops import flash_attention as tfa
 
 REPO = Path(__file__).resolve().parent.parent
-# bf16 inputs: a bf16 output is within one rounding (2^-8 relative) of the
-# float32 result, and the JAX reference also rounds its probabilities to
-# bf16 before the PV product; f32: summation order only.
-ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (atol, rtol).  The plain forward does the Pallas kernel's arithmetic (P
+# rounded to v's dtype for PV, l summed in float32), so in bf16 the two
+# agree but for a rare flip of the final rounding by float32 summation
+# order: one bf16 ulp, at most 2^-7 relative.  The port's mha_reference does
+# the jnp reference's arithmetic and agrees with it as closely.  The jnp
+# reference rounds the normalised P, the kernel the unnormalised one, so in
+# bf16 the plain forward and the jnp reference differ by up to one rounding
+# of the output, 2^-8 of |o| <= 4.  float32: summation order only.
+TOL_PALLAS = {"float32": (1e-6, 1e-6), "bfloat16": (1e-7, 2**-7)}
+TOL_REFERENCE = {"float32": (1e-6, 1e-6), "bfloat16": (1e-3, 2**-7)}
+TOL_PLAIN_REFERENCE = {"float32": (1e-6, 1e-6), "bfloat16": (2e-2, 0.0)}
+# dQ, dK, dV in bf16 against the Pallas backward: both round P and dS to bf16
+# before the products, so a float32 difference in the last place can flip
+# one such rounding; held to 2^-8 of the tensor's largest magnitude.  Against
+# autograd of the plain forward, whose backward keeps dS in float32 and
+# rounds at other places, 2^-6.  float32: summation order only, of terms up
+# to ~10 (dP and delta, which cancel exactly when S = 1).
+BWD_TOL_OF_MAX_PALLAS = {"float32": 1e-5, "bfloat16": 2**-8}
+BWD_TOL_OF_MAX_AUTOGRAD = {"float32": 1e-5, "bfloat16": 2**-6}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,11 +69,37 @@ def _lse64(q, k):
     return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
 
 
+def _qkvdo(S, D, dtype):
+    rng = np.random.RandomState(S * 100 + D)
+    x = rng.randn(4, 2, 2, S, D).astype(np.float32)
+    return list(torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+@functools.cache
+def _jax_pallas(S, D, dtype):
+    """(o, dq, dk, dv) of the JAX package's Pallas kernels, run in interpret
+    mode on the CPU with one 128-row block, on ``_qkvdo``'s inputs."""
+    q, k, v, do = (jnp.asarray(t.float().numpy(), dtype=dtype) for t in _qkvdo(S, D, dtype))
+    interpret = functools.partial(jfa.pl.pallas_call, interpret=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfa.pl, "pallas_call", interpret)
+        f = functools.partial(jfa.causal_flash_attention, block_q=128, block_k=128,
+                              force_pallas=True)
+        o, vjp = jax.vjp(f, q, k, v)
+        grads = vjp(do)
+    return tuple(np.asarray(x).astype(np.float32) for x in (o, *grads))
+
+
+def _close(out, ref, tol):
+    atol, rtol = tol
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", [16, 64])
 @pytest.mark.parametrize("S", [1, 37, 90])
 def test_port_matches_jax_reference(S, D, dtype):
-    q, k, v = _qkv(S * 100 + D, 2, 2, S, D, dtype)
+    q, k, v, _ = _qkvdo(S, D, dtype)
     to_jax = lambda t: jnp.asarray(t.float().numpy(), dtype=dtype)  # noqa: E731
     o_jax = np.asarray(jfa.mha_reference(to_jax(q), to_jax(k), to_jax(v))).astype(np.float32)
 
@@ -62,9 +107,62 @@ def test_port_matches_jax_reference(S, D, dtype):
     o_plain, lse = tfa.flash_attention_fwd_plain(q, k, v)
     assert o_ref.dtype == o_plain.dtype == q.dtype and lse.dtype == torch.float32
     assert lse.shape == (2, 2, S)
-    np.testing.assert_allclose(o_ref.float().numpy(), o_jax, atol=ATOL[dtype], rtol=0)
-    np.testing.assert_allclose(o_plain.float().numpy(), o_jax, atol=ATOL[dtype], rtol=0)
+    _close(o_ref, o_jax, TOL_REFERENCE[dtype])
+    _close(o_plain, o_jax, TOL_PLAIN_REFERENCE[dtype])
+    _close(o_plain, _jax_pallas(S, D, dtype)[0], TOL_PALLAS[dtype])
     np.testing.assert_allclose(lse.numpy(), _lse64(q, k), atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("S", [1, 37, 90])
+def test_bwd_plain_matches_jax_pallas_and_autograd(S, D, dtype):
+    q, k, v, do = _qkvdo(S, D, dtype)
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    autograd = torch.autograd.grad(tfa.flash_attention_fwd_plain(*leaves)[0], leaves, do)
+    for g, ref_jax, ref_torch in zip(grads, _jax_pallas(S, D, dtype)[1:], autograd):
+        assert g.dtype == q.dtype and g.shape == q.shape
+        scale = max(1.0, np.abs(ref_jax).max())
+        assert np.abs(g.float().numpy() - ref_jax).max() <= BWD_TOL_OF_MAX_PALLAS[dtype] * scale
+        err = (g.float() - ref_torch.float()).abs().max().item()
+        assert err <= BWD_TOL_OF_MAX_AUTOGRAD[dtype] * scale
+
+
+def test_cpu_backward_goes_through_the_function():
+    q, k, v, do = (t.requires_grad_() for t in _qkvdo(37, 16, "float32"))
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    o = tfa.causal_flash_attention(q, k, v)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    (o * do).sum().backward()
+    _, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    expected = tfa.flash_attention_bwd_plain(q, k, v, do, lse.detach(), delta.detach())
+    for t, e in zip((q, k, v), expected):
+        assert torch.equal(t.grad, e)
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == before
+
+
+def test_bwd_wrappers_take_the_plain_version_on_cpu():
+    q, k, v, do = _qkvdo(37, 64, "bfloat16")
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = tfa.flash_attention_bwd_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(tfa.flash_attention_bwd(*args, 4, 64), (dq, dk, dv)))
+    assert torch.equal(tfa.flash_attention_dq(*args), dq)
+    assert all(torch.equal(a, b) for a, b in zip(tfa.flash_attention_dkv(*args), (dk, dv)))
+    with pytest.raises(ValueError, match="do must match"):
+        tfa.flash_attention_bwd(q, k, v, do.float(), lse, delta)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        tfa.flash_attention_bwd(q, k, v, do, lse.bfloat16(), delta)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        tfa.flash_attention_dq(q, k, v, do, lse, delta[:, :, 1:])
+    meta = [t.to("meta") for t in args]
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention_dkv(*meta)
 
 
 @pytest.mark.parametrize("blocks", [(0, 0), (4, 64), (16, 32)])
