@@ -5,10 +5,16 @@
 
 Phases, each printing JSON lines; any fault raises and exits nonzero:
 
-1. build     -- nvcc builds every kernel source in ``csrc/``, all at once.
+1. build     -- nvcc builds every kernel source in ``csrc/``, all at once;
+                per source the instantiations, most registers and spills,
+                and per bf16 forward instantiation (one per head dim) its
+                registers, spills, static and dynamic shared memory.
 2. kernel    -- each kernel against its plain PyTorch version on the card:
                 the forward (O and LSE) and the backward (dQ, dK, dV) at the
-                serving and training paths' shapes and a few more.
+                serving and training paths' shapes and a few more; then the
+                bf16 forward at every head dim and S in ``FWD_SWEEP_SEQS``,
+                with one head's K and V all NaN, and with inputs whose last
+                row ends their allocation.
 3. reference -- flagship logits on the card against the same weights on the
                 CPU (plain attention), float32 and bf16.
 4. grad      -- the loss and every parameter's gradient of the flagship-width
@@ -27,8 +33,9 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
 7. timing    -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
-                training and long-context shapes, beside the bound from
-                bytes and FLOPs.
+                serving, training and long-context shapes, beside the bound
+                from bytes and FLOPs; the backward kernels at each of their
+                block choices.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
@@ -40,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -51,20 +59,31 @@ KERNEL_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
 SERVE_SHAPE = (16, 4, 90, 128)  # (B, H, S, D) of every attention call in serve
 TRAIN_SHAPE = (128, 4, 90, 128)  # ... in a bench.py train step (B = 128)
 LONG_SHAPE = (16, 4, 1026, 128)  # the long-context DT, K = 342
-# (shape, dtype, (block_q, block_k)); (0, 0) is the default the model uses
+# (shape, dtype, forward (block_q, block_k), backward (block_q, block_k));
+# (0, 0) is each kernel's default, which the model uses.  The bf16 forward
+# (tensor cores) has the one tile (64, 64); the CUDA-core kernels take
+# their own choices.
 KERNEL_CASES = [
-    (SERVE_SHAPE, torch.bfloat16, (0, 0)),
-    (TRAIN_SHAPE, torch.bfloat16, (0, 0)),
-    (LONG_SHAPE, torch.bfloat16, (0, 0)),
-    ((2, 4, 37, 64), torch.bfloat16, (0, 0)),
-    ((2, 4, 37, 64), torch.bfloat16, (4, 64)),
-    ((2, 4, 37, 64), torch.bfloat16, (16, 32)),
-    ((4, 4, 200, 128), torch.float32, (0, 0)),
-    ((4, 4, 200, 128), torch.float32, (16, 64)),
-    ((2, 2, 37, 16), torch.bfloat16, (0, 0)),
-    ((2, 2, 37, 16), torch.float32, (4, 64)),
-    ((2, 2, 70, 32), torch.float32, (16, 32)),
+    (SERVE_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
+    (TRAIN_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
+    (LONG_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
+    ((2, 4, 37, 64), torch.bfloat16, (0, 0), (0, 0)),
+    ((2, 4, 37, 64), torch.bfloat16, (64, 64), (4, 64)),
+    ((2, 4, 37, 64), torch.bfloat16, (0, 0), (16, 32)),
+    ((4, 4, 200, 128), torch.float32, (0, 0), (0, 0)),
+    ((4, 4, 200, 128), torch.float32, (16, 64), (16, 64)),
+    ((2, 2, 37, 16), torch.bfloat16, (0, 0), (0, 0)),
+    ((2, 2, 37, 16), torch.float32, (4, 64), (4, 64)),
+    ((2, 2, 70, 32), torch.float32, (16, 32), (16, 32)),
 ]
+# The bf16 forward alone, at every head dim and these sequence lengths: one
+# row, one tile, a ragged tile on either side of 64 and the model's lengths.
+FWD_SWEEP_DIMS = (16, 32, 64, 128)
+FWD_SWEEP_SEQS = (1, 37, 63, 64, 65, 90, 1026)
+# Exactly 12 MiB of bf16 each for q, k and v, so that the caching allocator
+# gives each a segment of its own and the last row ends where the segment
+# does; S = 96 leaves a ragged last tile of 32 rows.
+END_OF_ALLOCATION_SHAPE = (128, 4, 96, 128)
 # O: the kernel and the plain version both round one float32 result to the
 # output dtype, so they may differ by one rounding of it (bf16: 2^-8
 # relative) plus float32 summation order.  LSE is float32 in both.
@@ -151,8 +170,26 @@ def read_counts():
             "flash_dkv": fa.dkv_launches}
 
 
+def ptxas_entries(log: str):
+    """(mangled kernel name, registers, spill store bytes, static shared
+    bytes) of each kernel in an ``nvcc -Xptxas -v`` log."""
+    entries, name, spills = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name is not None:
+            regs = int(line.split("Used")[1].split()[0])
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries.append((name, regs, spills, int(smem.group(1)) if smem else 0))
+            name = None
+    return entries
+
+
 def phase_build():
     from mmtrl_tpu_torch.ops import _build
+    from mmtrl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     fresh = [n for n in KERNEL_SOURCES if not _build.library_path(n).exists()]
@@ -160,11 +197,43 @@ def phase_build():
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-        regs = [int(w) for line in log.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
-        spills = sum(int(line.split()[4]) for line in log.splitlines() if "spill stores" in line)
+        entries = ptxas_entries(log)
         emit("build", kernel=name, seconds=seconds, built=name in fresh,
-             max_registers=max(regs, default=None), spill_store_bytes=spills)
+             instantiations=len(entries), max_registers=max((e[1] for e in entries), default=None),
+             spill_store_bytes=sum(e[2] for e in entries))
+    # The bf16 forward's instantiations one by one: fwd_sm90<D>.
+    smem_of = fa._library("flash_fwd").flash_fwd_bf16_smem
+    for mangled, regs, spills, static in ptxas_entries(
+            libs["flash_fwd"].with_suffix(".log").read_text()):
+        found = re.search(r"fwd_sm90ILi(\d+)E", mangled)
+        if found:
+            d = int(found.group(1))
+            emit("build", kernel="flash_fwd bf16", head_dim=d, blocks=list(fa.BF16_FWD_BLOCKS),
+                 registers=regs, spill_store_bytes=spills, static_smem_bytes=static,
+                 dynamic_smem_bytes=smem_of(d), build_seconds=seconds)
+
+
+def check_fwd(q, k, v, blocks, what: str, heads=None):
+    """The forward kernel against its plain version on the same inputs, over
+    the (B, H) heads selected by the boolean mask ``heads`` (all by
+    default); returns the largest differences of O and LSE, and the
+    kernel's O and LSE."""
+    from mmtrl_tpu_torch.ops import flash_attention as fa
+
+    out = fa.flash_attention_fwd(q, k, v, *blocks)
+    torch.cuda.synchronize()
+    o, lse = out
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    if heads is not None:
+        o, lse, o_ref, lse_ref = o[heads], lse[heads], o_ref[heads], lse_ref[heads]
+    atol, rtol = O_TOL[q.dtype]
+    d_o = (o.float() - o_ref.float()).abs()
+    err_o, err_lse = d_o.max().item(), (lse - lse_ref).abs().max().item()
+    ok = (bool((d_o <= atol + rtol * o_ref.float().abs()).all()) and err_lse <= LSE_ATOL
+          and math.isfinite(err_o) and math.isfinite(err_lse))
+    check(ok, f"flash_fwd disagrees with its plain version: {what}: "
+              f"O {err_o}, LSE {err_lse}")
+    return err_o, err_lse, out
 
 
 def phase_kernel():
@@ -173,25 +242,17 @@ def phase_kernel():
     from mmtrl_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    for i, (shape, dtype, blocks) in enumerate(KERNEL_CASES):
+    for i, (shape, dtype, blocks, bwd_blocks) in enumerate(KERNEL_CASES):
         q, k, v, do = randn(shape, dtype, SEED + i, 4)
-        o, lse = fa.flash_attention_fwd(q, k, v, *blocks)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
-        atol, rtol = O_TOL[dtype]
-        d_o = (o.float() - o_ref.float()).abs()
-        err_o, err_lse = d_o.max().item(), (lse - lse_ref).abs().max().item()
-        ok = bool((d_o <= atol + rtol * o_ref.float().abs()).all()) and err_lse <= LSE_ATOL
+        err_o, err_lse, (o, lse) = check_fwd(q, k, v, blocks, f"{shape} {dtype} {blocks}")
         emit("kernel", kernel="flash_fwd", shape=list(shape), dtype=str(dtype),
              blocks=list(blocks), max_abs_err_o=err_o, max_abs_err_lse=err_lse,
-             o_tol=[atol, rtol], lse_atol=LSE_ATOL, ok=ok)
-        check(ok and math.isfinite(err_o),
-              f"flash_fwd disagrees with its plain version at {shape} {dtype} {blocks}")
+             o_tol=list(O_TOL[dtype]), lse_atol=LSE_ATOL, ok=True)
 
         # Both sides of the backward get the same lse and delta.
         delta = (do.float() * o.float()).sum(-1)
-        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, *blocks)
-        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, *blocks)
+        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, *bwd_blocks)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, *bwd_blocks)
         torch.cuda.synchronize()
         refs = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
         tol = GRAD_TOL_OF_MAX[dtype]
@@ -201,14 +262,50 @@ def phase_kernel():
             scale = max(1.0, ref.float().abs().max().item())
             bwd_errs[name] = err
             check(out.dtype == q.dtype and math.isfinite(err) and err <= tol * scale,
-                  f"{name} disagrees with the plain backward at {shape} {dtype} {blocks}: "
-                  f"{err} against {tol} x {scale}")
+                  f"{name} disagrees with the plain backward at {shape} {dtype} "
+                  f"{bwd_blocks}: {err} against {tol} x {scale}")
         emit("kernel", kernel="flash_dq+flash_dkv", shape=list(shape), dtype=str(dtype),
-             blocks=list(blocks), **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()},
+             blocks=list(bwd_blocks), **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()},
              tol_of_max=tol, ok=True)
         if (shape, dtype, blocks) == (TRAIN_SHAPE, torch.bfloat16, (0, 0)):
             errs = {"flash_fwd": err_o, "flash_dq": bwd_errs["dq"],
                     "flash_dkv": max(bwd_errs["dk"], bwd_errs["dv"])}
+
+    bf16 = torch.bfloat16
+    for D in FWD_SWEEP_DIMS:
+        worst_o = worst_lse = 0.0
+        for S in FWD_SWEEP_SEQS:
+            q, k, v = randn((2, 3, S, D), bf16, SEED + S + D)
+            err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), f"D {D} S {S}")
+            worst_o, worst_lse = max(worst_o, err_o), max(worst_lse, err_lse)
+        emit("kernel", kernel="flash_fwd", case="bf16 sweep", head_dim=D, heads=[2, 3],
+             seqs=list(FWD_SWEEP_SEQS), max_abs_err_o=worst_o, max_abs_err_lse=worst_lse,
+             ok=True)
+
+    # One head's K and V all NaN: every other head must still equal the
+    # plain version, so no tile reads across a head's last row.
+    for S in (37, 90):
+        q, k, v = randn((2, 4, S, 128), bf16, SEED + 7)
+        k[0, 1], v[0, 1] = float("nan"), float("nan")
+        others = torch.ones(2, 4, dtype=torch.bool, device="cuda")
+        others[0, 1] = False
+        err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), f"NaN head, S {S}", others)
+        emit("kernel", kernel="flash_fwd", case="NaN head (0, 1)", shape=[2, 4, S, 128],
+             max_abs_err_o=err_o, max_abs_err_lse=err_lse, ok=True)
+
+    # q, k and v each alone in a segment that ends with their last row.
+    torch.cuda.empty_cache()
+    q, k, v = (torch.empty(END_OF_ALLOCATION_SHAPE, dtype=bf16, device="cuda") for _ in "qkv")
+    for t, src in zip((q, k, v), randn(END_OF_ALLOCATION_SHAPE, bf16, SEED + 8)):
+        t.copy_(src)
+    nbytes = q.numel() * q.element_size()
+    segments = {s["address"]: s["total_size"] for s in torch.cuda.memory_snapshot()}
+    check(all(segments.get(t.data_ptr()) == nbytes for t in (q, k, v)),
+          "the end-of-allocation case did not get segments of its own")
+    err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), "end of allocation")
+    emit("kernel", kernel="flash_fwd", case="last row ends its allocation",
+         shape=list(END_OF_ALLOCATION_SHAPE), segment_bytes=nbytes,
+         max_abs_err_o=err_o, max_abs_err_lse=err_lse, ok=True)
     return errs
 
 
@@ -466,9 +563,10 @@ def phase_timing(smi: str):
                 library_ms=cuda_ms(library, reps),
                 bound_ms=bound_ms, bound_by=bound_by,
             )
-            if name == "flash_fwd" and label != "train":
+            if name != "flash_fwd":  # the CUDA-core kernels' block choices
+                wrapper = getattr(fa, name.replace("flash_", "flash_attention_"))
                 row["blocks_ms"] = {
-                    f"{bq}x{bk}": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, bq, bk), reps)
+                    f"{bq}x{bk}": cuda_ms(lambda: wrapper(*bwd_args, bq, bk), reps)
                     for bq in fa.BLOCK_Q_CHOICES for bk in fa.BLOCK_K_CHOICES
                 }
             emit("timing", kernel=name, shape_name=label, shape=list(shape),

@@ -6,14 +6,27 @@ kernels, one for each Pallas kernel of the JAX package:
 
 - ``csrc/flash_fwd.cu`` (``_fwd_kernel``): the causal online softmax with
   float32 scores and accumulation; writes O in the input dtype and the
-  per-row logsumexp in float32;
+  per-row logsumexp in float32.  It holds two kernels and takes one by
+  dtype: bfloat16 runs on the tensor cores (``wgmma`` on tiles that TMA
+  loads into shared memory); float32 runs on the CUDA cores, because a
+  float32 ``wgmma`` computes in TF32, about three decimal digits, which
+  would break float32's agreement with the plain version to 1e-5.  This is
+  a dispatch on dtype: every call of a dtype takes its kernel, and neither
+  stands in for the other;
 - ``csrc/flash_dq.cu`` (``_dq_kernel``) and ``csrc/flash_dkv.cu``
   (``_dkv_kernel``): dQ, and dK with dV, from the probabilities recomputed
-  from that logsumexp and delta = rowsum(dO * O).
+  from that logsumexp and delta = rowsum(dO * O), on the CUDA cores.
 
 None of them forms the (S, S) score matrix in device memory.  Like the
 Pallas kernels they round the probabilities (and dS) to the input dtype
 before each product with a (S, D) operand.
+
+The kernel-level wrappers take a ``(block_q, block_k)`` pair, 0 for each
+kernel's default: the CUDA-core kernels choose from ``BLOCK_Q_CHOICES`` x
+``BLOCK_K_CHOICES``, and the bf16 forward has one tile, ``BF16_FWD_BLOCKS``.
+A pair that the kernel does not take raises ``ValueError`` naming it, for
+CPU and CUDA tensors alike.  ``causal_flash_attention``, which the model
+calls, always runs every kernel at its default.
 
 A CUDA tensor always launches the kernels, at every sequence length: the
 JAX package's ``PALLAS_MIN_SEQ`` crossover was measured on a TPU and is not
@@ -31,10 +44,16 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1e30
-DEFAULT_BLOCK_Q = 8  # rows per CUDA block, one warp each
-DEFAULT_BLOCK_K = 32  # rows of the other operand per shared-memory tile
+# The CUDA-core kernels (forward in float32, dQ and dK/dV in both dtypes):
+# block_q rows per CUDA block, one warp each; block_k rows of the other
+# operand per shared-memory tile.
+DEFAULT_BLOCK_Q = 8
+DEFAULT_BLOCK_K = 32
 BLOCK_Q_CHOICES = (4, 8, 16)
 BLOCK_K_CHOICES = (32, 64)
+# The bfloat16 forward on the tensor cores has one tile: 64 query rows per
+# CUDA block (one consumer warpgroup) by 64 keys per TMA tile.
+BF16_FWD_BLOCKS = (64, 64)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,7 +120,26 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, block_q, block_k) -> Tuple[int, int]:
+def _blocks(kernel: str, dtype: torch.dtype, block_q: int, block_k: int) -> Tuple[int, int]:
+    """The pair ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") runs with
+    in ``dtype``: each 0 replaced by its default; a value it does not take
+    raises, never replaced."""
+    if kernel == "flash_fwd" and dtype == torch.bfloat16:
+        default_q, default_k = BF16_FWD_BLOCKS
+        qs, ks = (default_q,), (default_k,)
+    else:
+        qs, ks = BLOCK_Q_CHOICES, BLOCK_K_CHOICES
+        default_q, default_k = DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K
+    bq, bk = block_q or default_q, block_k or default_k
+    if bq not in qs or bk not in ks:
+        raise ValueError(
+            f"{kernel} in {dtype} takes block_q in {qs} and block_k in {ks} "
+            f"(0 = its default, {default_q} and {default_k}), got {block_q}, {block_k}"
+        )
+    return bq, bk
+
+
+def _check(q, k, v) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q, k, v must share one (B, H, S, D) shape, got "
@@ -111,19 +149,13 @@ def _check(q, k, v, block_q, block_k) -> Tuple[int, int]:
         raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
-    block_q = block_q or DEFAULT_BLOCK_Q
-    block_k = block_k or DEFAULT_BLOCK_K
-    if block_q not in BLOCK_Q_CHOICES or block_k not in BLOCK_K_CHOICES:
-        raise ValueError(
-            f"block_q must be one of {BLOCK_Q_CHOICES} and block_k one of "
-            f"{BLOCK_K_CHOICES} (0 = default), got {block_q}, {block_k}"
-        )
-    return block_q, block_k
 
 
-def _check_kernel_inputs(first: torch.Tensor, **tensors: torch.Tensor) -> None:
+def _check_kernel_inputs(first: torch.Tensor, heads_on_grid_y: bool,
+                         **tensors: torch.Tensor) -> None:
     """What every kernel requires of a CUDA call, beyond ``_check``;
-    ``first`` is the (B, H, S, D) q."""
+    ``first`` is the (B, H, S, D) q.  The CUDA-core kernels put B * H on
+    grid.y (``heads_on_grid_y``); the bf16 forward's grid is 1-D."""
     if first.device.type != "cuda":
         raise ValueError(f"no kernel for device {first.device}")
     B, H, S, D = first.shape
@@ -131,7 +163,7 @@ def _check_kernel_inputs(first: torch.Tensor, **tensors: torch.Tensor) -> None:
         raise ValueError(f"kernel takes float32 or bfloat16, got {first.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"kernel takes head dim in {HEAD_DIMS}, got {D}")
-    if B * H > 65535:  # grid.y
+    if heads_on_grid_y and B * H > 65535:
         raise ValueError(f"kernel takes B * H <= 65535, got {B * H}")
     for name, t in tensors.items():
         if not t.is_contiguous():
@@ -151,6 +183,9 @@ def _library(name: str) -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    if name == "flash_fwd":
+        lib.flash_fwd_bf16_smem.argtypes = [ctypes.c_int]
+        lib.flash_fwd_bf16_smem.restype = ctypes.c_int
     return lib
 
 
@@ -175,16 +210,21 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of causal attention over (B, H, S, D) inputs.
 
-    CUDA tensors launch the kernel: contiguous, float32 or bfloat16, D in
-    ``HEAD_DIMS``, 16-byte aligned.  ``block_q`` (query rows per CUDA block)
-    and ``block_k`` (keys per shared-memory tile) are used as given; 0 picks
-    the default.  CPU tensors take the plain version.
+    CUDA tensors launch the kernel of their dtype: contiguous, float32 or
+    bfloat16, D in ``HEAD_DIMS``, 16-byte aligned.  bfloat16 takes the
+    tensor-core kernel, float32 the CUDA-core kernel (a float32 ``wgmma``
+    would compute in TF32).  ``block_q`` (query rows per CUDA block) and
+    ``block_k`` (keys per tile) are used as given, 0 for the default: the
+    float32 kernel takes ``BLOCK_Q_CHOICES`` x ``BLOCK_K_CHOICES``, the
+    bf16 kernel only ``BF16_FWD_BLOCKS``.  CPU tensors take the plain
+    version.
     """
     global launches
-    block_q, block_k = _check(q, k, v, block_q, block_k)
+    _check(q, k, v)
+    block_q, block_k = _blocks("flash_fwd", q.dtype, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v)
-    _check_kernel_inputs(q, q=q, k=k, v=v)
+    _check_kernel_inputs(q, q.dtype == torch.float32, q=q, k=k, v=v)
     B, H, S, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -195,8 +235,8 @@ def flash_attention_fwd(
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta, block_q, block_k) -> Tuple[int, int]:
-    blocks = _check(q, k, v, block_q, block_k)
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(
             f"do must match q: {tuple(do.shape)} {do.dtype} {do.device} against "
@@ -209,15 +249,15 @@ def _check_bwd(q, k, v, do, lse, delta, block_q, block_k) -> Tuple[int, int]:
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     if q.device.type != "cpu":
-        _check_kernel_inputs(q, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-    return blocks
+        _check_kernel_inputs(q, True, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, block_q: int = 0, block_k: int = 0):
     """dq alone: ``flash_dq`` on CUDA tensors (``block_q`` query rows per
     CUDA block, ``block_k`` keys per tile), the plain version on the CPU."""
     global dq_launches
-    block_q, block_k = _check_bwd(q, k, v, do, lse, delta, block_q, block_k)
+    _check_bwd(q, k, v, do, lse, delta)
+    block_q, block_k = _blocks("flash_dq", q.dtype, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)[0]
     dq = torch.empty_like(q)
@@ -232,7 +272,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, block_q: int = 0, block_k: int 
     per CUDA block, ``block_k`` queries per tile), the plain version on the
     CPU."""
     global dkv_launches
-    block_q, block_k = _check_bwd(q, k, v, do, lse, delta, block_q, block_k)
+    _check_bwd(q, k, v, do, lse, delta)
+    block_q, block_k = _blocks("flash_dkv", q.dtype, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -263,7 +304,9 @@ def flash_attention_bwd(
     CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
-        _check_bwd(q, k, v, do, lse, delta, block_q, block_k)
+        _check_bwd(q, k, v, do, lse, delta)
+        for kernel in ("flash_dq", "flash_dkv"):
+            _blocks(kernel, q.dtype, block_q, block_k)
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)
     dq = flash_attention_dq(q, k, v, do, lse, delta, block_q, block_k)
     return (dq, *flash_attention_dkv(q, k, v, do, lse, delta, block_q, block_k))
@@ -271,14 +314,13 @@ def flash_attention_bwd(
 
 class FlashAttention(torch.autograd.Function):
     """Causal attention with the kernels' backward; the counterpart of the
-    JAX package's ``jax.custom_vjp``.  Saves (q, k, v, o, lse); the block
-    sizes get no gradient."""
+    JAX package's ``jax.custom_vjp``.  Saves (q, k, v, o, lse); every
+    kernel runs at its default blocks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, block_q: int = 0, block_k: int = 0):
-        o, lse = flash_attention_fwd(q, k, v, block_q, block_k)
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.blocks = (block_q, block_k)
         return o
 
     @staticmethod
@@ -288,18 +330,11 @@ class FlashAttention(torch.autograd.Function):
         # it need not be contiguous; delta uses O as the forward returned it.
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, *ctx.blocks)
-        return dq, dk, dv, None, None
+        return flash_attention_bwd(q, k, v, do, lse, delta)
 
 
-def causal_flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    block_q: int = 0,
-    block_k: int = 0,
-) -> torch.Tensor:
+def causal_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal multi-head attention, (B, H, S, D) -> (B, H, S, D),
     differentiable through the backward kernels (the plain backward on CPU
-    tensors)."""
-    return FlashAttention.apply(q, k, v, block_q, block_k)
+    tensors); every kernel runs at its default blocks."""
+    return FlashAttention.apply(q, k, v)

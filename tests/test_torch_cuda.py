@@ -23,26 +23,48 @@ def _need_gpu():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "shape,blocks",
-    [((16, 4, 90, 128), (0, 0)), ((2, 4, 37, 64), (4, 64)), ((1, 2, 300, 128), (16, 64))],
-)
-def test_flash_fwd_matches_plain_version(shape, blocks, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    q, k, v = _qkv(shape, dtype, 1)
+def _check_fwd(q, k, v, blocks, heads=None):
+    """One launch of the forward against its plain version, over the (B, H)
+    heads selected by the boolean mask ``heads`` (all by default)."""
     before = fa.launches
     o, lse = fa.flash_attention_fwd(q, k, v, *blocks)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    if heads is not None:
+        o, lse, o_ref, lse_ref = o[heads], lse[heads], o_ref[heads], lse_ref[heads]
     # one rounding of the same float32 result to the output dtype, plus
     # float32 summation order
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
     assert ((o.float() - o_ref.float()).abs() <= tol * (1 + o_ref.float().abs())).all()
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,shape,blocks",
+    [(torch.float32, (16, 4, 90, 128), (0, 0)), (torch.float32, (2, 4, 37, 64), (4, 64)),
+     (torch.float32, (1, 2, 300, 128), (16, 64)), (torch.bfloat16, (16, 4, 90, 128), (0, 0)),
+     (torch.bfloat16, (2, 4, 37, 64), fa.BF16_FWD_BLOCKS), (torch.bfloat16, (1, 2, 300, 128), (0, 0))]
+    + [(torch.bfloat16, (2, 3, S, D), (0, 0)) for D in (16, 32, 64, 128) for S in (1, 63, 64, 65, 90)],
+)
+def test_flash_fwd_matches_plain_version(dtype, shape, blocks):
+    _need_gpu()
+    _check_fwd(*_qkv(shape, dtype, 1), blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 90])
+def test_flash_fwd_nan_head_stays_in_its_head(S):
+    """One head's K and V all NaN: the other heads still equal the plain
+    version, so no tile reads past a head's last row (S = 37 and 90 leave a
+    ragged last tile)."""
+    _need_gpu()
+    q, k, v = _qkv((2, 4, S, 128), torch.bfloat16, 3)
+    k[0, 1], v[0, 1] = float("nan"), float("nan")
+    others = torch.ones(2, 4, dtype=torch.bool, device="cuda")
+    others[0, 1] = False
+    _check_fwd(q, k, v, (0, 0), others)
 
 
 @pytest.mark.cuda
@@ -61,6 +83,17 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+def test_flash_fwd_heads_past_grid_y():
+    """B * H > 65535: the bf16 forward's 1-D persistent grid takes it; the
+    float32 kernel, with B * H on grid.y, refuses it."""
+    _need_gpu()
+    q, k, v = _qkv((2, 35000, 1, 16), torch.bfloat16, 4)
+    _check_fwd(q, k, v, (0, 0))
+    with pytest.raises(ValueError, match="B \\* H <= 65535"):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape,blocks",
@@ -70,7 +103,7 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take():
 def test_flash_bwd_matches_plain_version(shape, blocks, dtype):
     _need_gpu()
     q, k, v, do = _qkv(shape, dtype, 2, 4)
-    o, lse = fa.flash_attention_fwd(q, k, v, *blocks)
+    o, lse = fa.flash_attention_fwd(q, k, v)  # its own default blocks
     delta = (do.float() * o.float()).sum(-1)
     before = (fa.dq_launches, fa.dkv_launches)
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, *blocks)

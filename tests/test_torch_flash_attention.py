@@ -165,22 +165,72 @@ def test_bwd_wrappers_take_the_plain_version_on_cpu():
         tfa.flash_attention_dkv(*meta)
 
 
-@pytest.mark.parametrize("blocks", [(0, 0), (4, 64), (16, 32)])
-def test_cpu_tensor_takes_plain_version(blocks):
-    q, k, v = _qkv(0, 2, 3, 37, 64, "bfloat16")
+# (dtype, blocks) pairs the forward takes: the bf16 forward's one tile
+# (query rows per block, keys per TMA tile) and the float32 CUDA-core
+# kernel's (rows per block, keys per shared-memory tile); (0, 0) is each
+# one's default.
+@pytest.mark.parametrize(
+    "dtype,blocks",
+    [("bfloat16", (0, 0)), ("bfloat16", (64, 64)), ("float32", (0, 0)),
+     ("float32", (4, 64)), ("float32", (16, 32)), ("float32", (8, 64))],
+)
+def test_cpu_tensor_takes_plain_version(dtype, blocks):
+    q, k, v = _qkv(0, 2, 3, 37, 64, dtype)
     before = tfa.launches
-    o = tfa.causal_flash_attention(q, k, v, *blocks)
+    o = tfa.causal_flash_attention(q, k, v)
     o2, lse2 = tfa.flash_attention_fwd(q, k, v, *blocks)
     o_plain, lse = tfa.flash_attention_fwd_plain(q, k, v)
     assert torch.equal(o, o_plain) and torch.equal(o2, o_plain) and torch.equal(lse2, lse)
     assert tfa.launches == before  # the plain version is no launch
 
 
-@pytest.mark.parametrize("blocks", [(2, 32), (8, 16), (32, 64), (8, 128)])
-def test_unsupported_blocks_raise(blocks):
-    q, k, v = _qkv(0, 1, 1, 8, 64, "float32")
+# Pairs the forward of that dtype does not take, CPU tensors as on the card;
+# the bf16 forward has the one tile (64, 64).
+@pytest.mark.parametrize(
+    "dtype,blocks",
+    [("float32", (2, 32)), ("float32", (8, 16)), ("float32", (32, 64)), ("float32", (8, 128)),
+     ("float32", (64, 64)), ("bfloat16", (32, 64)), ("bfloat16", (64, 32)),
+     ("bfloat16", (256, 128)), ("bfloat16", (64, 128)), ("bfloat16", (128, 64)),
+     ("bfloat16", (128, 128))],
+)
+def test_unsupported_blocks_raise(dtype, blocks):
+    q, k, v = _qkv(0, 1, 1, 8, 64, dtype)
     with pytest.raises(ValueError, match="block_q"):
-        tfa.causal_flash_attention(q, k, v, *blocks)
+        tfa.flash_attention_fwd(q, k, v, *blocks)
+
+
+def test_backward_blocks_raise_with_the_forward_kernels_name():
+    """The CUDA-core pair (8, 32) that the backward takes is no pair for the
+    bf16 forward, and the bf16 forward's (64, 64) none for the backward: each
+    raises naming the kernel that refuses it, before anything runs."""
+    q, k, v = _qkv(0, 1, 2, 8, 64, "bfloat16")
+    with pytest.raises(ValueError, match="flash_fwd in torch.bfloat16"):
+        tfa.flash_attention_fwd(q, k, v, 8, 32)
+    with pytest.raises(ValueError, match="flash_fwd in torch.bfloat16"):
+        tfa.flash_attention_fwd(q, k, v, 8, 0)
+    o, lse = tfa.flash_attention_fwd(q, k, v, 64, 64)
+    do = torch.ones_like(o)
+    delta = (do.float() * o.float()).sum(-1)
+    with pytest.raises(ValueError, match="flash_dq in torch.bfloat16"):
+        tfa.flash_attention_bwd(q, k, v, do, lse, delta, 64, 64)
+    with pytest.raises(ValueError, match="flash_dkv in torch.bfloat16"):
+        tfa.flash_attention_dkv(q, k, v, do, lse, delta, 64, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_default_blocks_run_forward_and_backward(dtype):
+    """The model's call runs each kernel at its own default, for both
+    dtypes; (0, 0) asks a wrapper for the same."""
+    q, k, v, do = _qkvdo(37, 64, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = tfa.causal_flash_attention(*leaves)
+    assert torch.equal(tfa.flash_attention_fwd(q, k, v, 0, 0)[0], o.detach())
+    grads = torch.autograd.grad(o, leaves, do)
+    o_plain, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * o_plain.float()).sum(-1)
+    assert torch.equal(o.detach(), o_plain)
+    for g, ref in zip(grads, tfa.flash_attention_bwd_plain(q, k, v, do, lse, delta)):
+        assert torch.equal(g, ref)
 
 
 def test_mismatched_inputs_raise():

@@ -14,8 +14,9 @@ training configuration (B = 128, K = 30, dropout 0.1, bf16 LayerNorm) on a
 steps, then five steps under the profiler.  Prints one JSON line: the
 window's wall time, the device's busy time (sum of kernel durations; one
 stream, so they do not overlap) and idle share, the kernel launches of each
-attention kernel, and the device time, calls and share of the top kernels,
-with the card's name and power limit.  Exits 1 without CUDA.
+attention kernel, and the device time, calls and share of the top kernels
+and of every attention kernel, with the card's name and power limit.
+Exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -120,6 +121,12 @@ def main() -> int:
                      "flash_dkv": fa.dkv_launches},
         "wall_s": wall_s, "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s,
         "kernel_launches": sum(calls.values()),
+        # the port's attention kernels, whether or not among the top ones
+        "attention_kernels": [
+            {"name": name[:80], "device_ms": t / 1e3, "calls": calls[name],
+             "share_of_busy": t / 1e6 / busy_s}
+            for name, t in us.most_common() if "fwd_sm90" in name or "flash_" in name
+        ],
         "top_kernels": [
             {"name": name[:80], "device_ms": t / 1e3, "calls": calls[name],
              "share_of_busy": t / 1e6 / busy_s}
