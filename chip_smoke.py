@@ -6,15 +6,16 @@
 Phases, each printing JSON lines; any fault raises and exits nonzero:
 
 1. build     -- nvcc builds every kernel source in ``csrc/``, all at once;
-                per source the instantiations, most registers and spills,
-                and per bf16 forward instantiation (one per head dim) its
+                per source the instantiations, most registers and spills and
+                the ptxas warnings that it serialized ``wgmma``s, and per
+                bf16 instantiation (one per kernel and head dim) its
                 registers, spills, static and dynamic shared memory.
 2. kernel    -- each kernel against its plain PyTorch version on the card:
                 the forward (O and LSE) and the backward (dQ, dK, dV) at the
                 serving and training paths' shapes and a few more; then the
-                bf16 forward at every head dim and S in ``FWD_SWEEP_SEQS``,
-                with one head's K and V all NaN, and with inputs whose last
-                row ends their allocation.
+                bf16 forward and the bf16 backward at every head dim and S in
+                ``SWEEP_SEQS``, with one head all NaN, and with inputs whose
+                last row ends their allocation.
 3. reference -- flagship logits on the card against the same weights on the
                 CPU (plain attention), float32 and bf16.
 4. grad      -- the loss and every parameter's gradient of the flagship-width
@@ -34,8 +35,7 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training and long-context shapes, beside the bound
-                from bytes and FLOPs; the backward kernels at each of their
-                block choices.
+                from bytes and FLOPs.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
@@ -60,29 +60,31 @@ SERVE_SHAPE = (16, 4, 90, 128)  # (B, H, S, D) of every attention call in serve
 TRAIN_SHAPE = (128, 4, 90, 128)  # ... in a bench.py train step (B = 128)
 LONG_SHAPE = (16, 4, 1026, 128)  # the long-context DT, K = 342
 # (shape, dtype, forward (block_q, block_k), backward (block_q, block_k));
-# (0, 0) is each kernel's default, which the model uses.  The bf16 forward
-# (tensor cores) has the one tile (64, 64); the CUDA-core kernels take
-# their own choices.
+# (0, 0) is each kernel's default, which the model uses.  The bf16 kernels
+# (tensor cores) have the one tile (64, 64); the float32 CUDA-core kernels
+# take their own choices.
 KERNEL_CASES = [
     (SERVE_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
     (TRAIN_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
     (LONG_SHAPE, torch.bfloat16, (0, 0), (0, 0)),
     ((2, 4, 37, 64), torch.bfloat16, (0, 0), (0, 0)),
-    ((2, 4, 37, 64), torch.bfloat16, (64, 64), (4, 64)),
-    ((2, 4, 37, 64), torch.bfloat16, (0, 0), (16, 32)),
+    ((2, 4, 37, 64), torch.bfloat16, (64, 64), (64, 64)),
+    ((2, 4, 37, 64), torch.float32, (0, 0), (4, 64)),
+    ((2, 4, 37, 64), torch.float32, (4, 64), (16, 32)),
     ((4, 4, 200, 128), torch.float32, (0, 0), (0, 0)),
     ((4, 4, 200, 128), torch.float32, (16, 64), (16, 64)),
     ((2, 2, 37, 16), torch.bfloat16, (0, 0), (0, 0)),
     ((2, 2, 37, 16), torch.float32, (4, 64), (4, 64)),
     ((2, 2, 70, 32), torch.float32, (16, 32), (16, 32)),
 ]
-# The bf16 forward alone, at every head dim and these sequence lengths: one
-# row, one tile, a ragged tile on either side of 64 and the model's lengths.
-FWD_SWEEP_DIMS = (16, 32, 64, 128)
-FWD_SWEEP_SEQS = (1, 37, 63, 64, 65, 90, 1026)
-# Exactly 12 MiB of bf16 each for q, k and v, so that the caching allocator
-# gives each a segment of its own and the last row ends where the segment
-# does; S = 96 leaves a ragged last tile of 32 rows.
+# The bf16 kernels, forward and backward, at every head dim and these
+# sequence lengths: one row, one tile, a ragged tile on either side of 64 and
+# the model's lengths.
+SWEEP_DIMS = (16, 32, 64, 128)
+SWEEP_SEQS = (1, 37, 63, 64, 65, 90, 1026)
+# Exactly 12 MiB of bf16 each for q, k, v and dO, so that the caching
+# allocator gives each a segment of its own and the last row ends where the
+# segment does; S = 96 leaves a ragged last tile of 32 rows.
 END_OF_ALLOCATION_SHAPE = (128, 4, 96, 128)
 # O: the kernel and the plain version both round one float32 result to the
 # output dtype, so they may differ by one rounding of it (bf16: 2^-8
@@ -198,19 +200,21 @@ def phase_build():
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         entries = ptxas_entries(log)
+        # ptxas C7513-C7518: waits inserted into a kernel's wgmma pipeline
+        serialized = sorted({line.strip() for line in log.splitlines()
+                             if "wgmma.mma_async instructions are serialized" in line})
         emit("build", kernel=name, seconds=seconds, built=name in fresh,
              instantiations=len(entries), max_registers=max((e[1] for e in entries), default=None),
-             spill_store_bytes=sum(e[2] for e in entries))
-    # The bf16 forward's instantiations one by one: fwd_sm90<D>.
-    smem_of = fa._library("flash_fwd").flash_fwd_bf16_smem
-    for mangled, regs, spills, static in ptxas_entries(
-            libs["flash_fwd"].with_suffix(".log").read_text()):
-        found = re.search(r"fwd_sm90ILi(\d+)E", mangled)
-        if found:
-            d = int(found.group(1))
-            emit("build", kernel="flash_fwd bf16", head_dim=d, blocks=list(fa.BF16_FWD_BLOCKS),
-                 registers=regs, spill_store_bytes=spills, static_smem_bytes=static,
-                 dynamic_smem_bytes=smem_of(d), build_seconds=seconds)
+             spill_store_bytes=sum(e[2] for e in entries), serialized_wgmma=serialized)
+        # The bf16 kernel's instantiations one by one: <kernel>_sm90<D>.
+        smem_of = getattr(fa._library(name), f"{name}_bf16_smem")
+        for mangled, regs, spills, static in entries:
+            found = re.search(r"_sm90ILi(\d+)E", mangled)
+            if found:
+                d = int(found.group(1))
+                emit("build", kernel=f"{name} bf16", head_dim=d, blocks=list(fa.BF16_BLOCKS),
+                     registers=regs, spill_store_bytes=spills, static_smem_bytes=static,
+                     dynamic_smem_bytes=smem_of(d), build_seconds=seconds)
 
 
 def check_fwd(q, k, v, blocks, what: str, heads=None):
@@ -236,6 +240,32 @@ def check_fwd(q, k, v, blocks, what: str, heads=None):
     return err_o, err_lse, out
 
 
+def check_bwd(q, k, v, do, o, lse, blocks, what: str, heads=None):
+    """dQ and dK/dV against the plain backward on the same inputs (both sides
+    get the same lse and delta), over the (B, H) heads selected by the boolean
+    mask ``heads`` (all by default); returns the largest difference of each
+    of dQ, dK and dV."""
+    from mmtrl_tpu_torch.ops import flash_attention as fa
+
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, *blocks)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, *blocks)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    tol = GRAD_TOL_OF_MAX[q.dtype]
+    errs = {}
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        if heads is not None:
+            out, ref = out[heads], ref[heads]
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        errs[name] = err
+        check(out.dtype == q.dtype and math.isfinite(err) and err <= tol * scale,
+              f"{name} disagrees with the plain backward: {what}: {err} against "
+              f"{tol} x {scale}")
+    return errs
+
+
 def phase_kernel():
     """Every kernel against its plain version; returns the largest error of
     each at the training shape."""
@@ -248,64 +278,59 @@ def phase_kernel():
         emit("kernel", kernel="flash_fwd", shape=list(shape), dtype=str(dtype),
              blocks=list(blocks), max_abs_err_o=err_o, max_abs_err_lse=err_lse,
              o_tol=list(O_TOL[dtype]), lse_atol=LSE_ATOL, ok=True)
-
-        # Both sides of the backward get the same lse and delta.
-        delta = (do.float() * o.float()).sum(-1)
-        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, *bwd_blocks)
-        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, *bwd_blocks)
-        torch.cuda.synchronize()
-        refs = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
-        tol = GRAD_TOL_OF_MAX[dtype]
-        bwd_errs = {}
-        for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = max(1.0, ref.float().abs().max().item())
-            bwd_errs[name] = err
-            check(out.dtype == q.dtype and math.isfinite(err) and err <= tol * scale,
-                  f"{name} disagrees with the plain backward at {shape} {dtype} "
-                  f"{bwd_blocks}: {err} against {tol} x {scale}")
+        bwd_errs = check_bwd(q, k, v, do, o, lse, bwd_blocks, f"{shape} {dtype} {bwd_blocks}")
         emit("kernel", kernel="flash_dq+flash_dkv", shape=list(shape), dtype=str(dtype),
              blocks=list(bwd_blocks), **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()},
-             tol_of_max=tol, ok=True)
+             tol_of_max=GRAD_TOL_OF_MAX[dtype], ok=True)
         if (shape, dtype, blocks) == (TRAIN_SHAPE, torch.bfloat16, (0, 0)):
             errs = {"flash_fwd": err_o, "flash_dq": bwd_errs["dq"],
                     "flash_dkv": max(bwd_errs["dk"], bwd_errs["dv"])}
 
     bf16 = torch.bfloat16
-    for D in FWD_SWEEP_DIMS:
-        worst_o = worst_lse = 0.0
-        for S in FWD_SWEEP_SEQS:
-            q, k, v = randn((2, 3, S, D), bf16, SEED + S + D)
-            err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), f"D {D} S {S}")
-            worst_o, worst_lse = max(worst_o, err_o), max(worst_lse, err_lse)
-        emit("kernel", kernel="flash_fwd", case="bf16 sweep", head_dim=D, heads=[2, 3],
-             seqs=list(FWD_SWEEP_SEQS), max_abs_err_o=worst_o, max_abs_err_lse=worst_lse,
+    for D in SWEEP_DIMS:
+        worst = dict.fromkeys(("o", "lse", "dq", "dk", "dv"), 0.0)
+        for S in SWEEP_SEQS:
+            q, k, v, do = randn((2, 3, S, D), bf16, SEED + S + D, 4)
+            err_o, err_lse, (o, lse) = check_fwd(q, k, v, (0, 0), f"D {D} S {S}")
+            found = {"o": err_o, "lse": err_lse,
+                     **check_bwd(q, k, v, do, o, lse, (0, 0), f"D {D} S {S}")}
+            worst = {n: max(worst[n], found[n]) for n in worst}
+        emit("kernel", kernel="flash_fwd+flash_dq+flash_dkv", case="bf16 sweep", head_dim=D,
+             heads=[2, 3], seqs=list(SWEEP_SEQS), **{f"max_abs_err_{n}": e for n, e in worst.items()},
              ok=True)
 
-    # One head's K and V all NaN: every other head must still equal the
-    # plain version, so no tile reads across a head's last row.
+    # One head all NaN (K and V for the forward; Q, K, V and dO, and so its
+    # lse and delta, for the backward): every other head must still equal the
+    # plain version, so no tile or vector load reads across a head's last row.
     for S in (37, 90):
-        q, k, v = randn((2, 4, S, 128), bf16, SEED + 7)
-        k[0, 1], v[0, 1] = float("nan"), float("nan")
+        q, k, v, do = randn((2, 4, S, 128), bf16, SEED + 7, 4)
         others = torch.ones(2, 4, dtype=torch.bool, device="cuda")
         others[0, 1] = False
+        k[0, 1], v[0, 1] = float("nan"), float("nan")
         err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), f"NaN head, S {S}", others)
-        emit("kernel", kernel="flash_fwd", case="NaN head (0, 1)", shape=[2, 4, S, 128],
-             max_abs_err_o=err_o, max_abs_err_lse=err_lse, ok=True)
+        q[0, 1], do[0, 1] = float("nan"), float("nan")
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        bwd_errs = check_bwd(q, k, v, do, o, lse, (0, 0), f"NaN head, S {S}", others)
+        emit("kernel", kernel="flash_fwd+flash_dq+flash_dkv", case="NaN head (0, 1)",
+             shape=[2, 4, S, 128], max_abs_err_o=err_o, max_abs_err_lse=err_lse,
+             **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()}, ok=True)
 
-    # q, k and v each alone in a segment that ends with their last row.
+    # q, k, v and dO each alone in a segment that ends with their last row.
     torch.cuda.empty_cache()
-    q, k, v = (torch.empty(END_OF_ALLOCATION_SHAPE, dtype=bf16, device="cuda") for _ in "qkv")
-    for t, src in zip((q, k, v), randn(END_OF_ALLOCATION_SHAPE, bf16, SEED + 8)):
+    q, k, v, do = (torch.empty(END_OF_ALLOCATION_SHAPE, dtype=bf16, device="cuda")
+                   for _ in range(4))
+    for t, src in zip((q, k, v, do), randn(END_OF_ALLOCATION_SHAPE, bf16, SEED + 8, 4)):
         t.copy_(src)
     nbytes = q.numel() * q.element_size()
     segments = {s["address"]: s["total_size"] for s in torch.cuda.memory_snapshot()}
-    check(all(segments.get(t.data_ptr()) == nbytes for t in (q, k, v)),
+    check(all(segments.get(t.data_ptr()) == nbytes for t in (q, k, v, do)),
           "the end-of-allocation case did not get segments of its own")
-    err_o, err_lse, _ = check_fwd(q, k, v, (0, 0), "end of allocation")
-    emit("kernel", kernel="flash_fwd", case="last row ends its allocation",
+    err_o, err_lse, (o, lse) = check_fwd(q, k, v, (0, 0), "end of allocation")
+    bwd_errs = check_bwd(q, k, v, do, o, lse, (0, 0), "end of allocation")
+    emit("kernel", kernel="flash_fwd+flash_dq+flash_dkv", case="last row ends its allocation",
          shape=list(END_OF_ALLOCATION_SHAPE), segment_bytes=nbytes,
-         max_abs_err_o=err_o, max_abs_err_lse=err_lse, ok=True)
+         max_abs_err_o=err_o, max_abs_err_lse=err_lse,
+         **{f"max_abs_err_{n}": e for n, e in bwd_errs.items()}, ok=True)
     return errs
 
 
@@ -563,12 +588,6 @@ def phase_timing(smi: str):
                 library_ms=cuda_ms(library, reps),
                 bound_ms=bound_ms, bound_by=bound_by,
             )
-            if name != "flash_fwd":  # the CUDA-core kernels' block choices
-                wrapper = getattr(fa, name.replace("flash_", "flash_attention_"))
-                row["blocks_ms"] = {
-                    f"{bq}x{bk}": cuda_ms(lambda: wrapper(*bwd_args, bq, bk), reps)
-                    for bq in fa.BLOCK_Q_CHOICES for bk in fa.BLOCK_K_CHOICES
-                }
             emit("timing", kernel=name, shape_name=label, shape=list(shape),
                  dtype="bfloat16", card=smi, **row)
             rows[(name, label)] = row

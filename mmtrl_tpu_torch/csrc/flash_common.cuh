@@ -1,10 +1,8 @@
-// Pieces shared by the causal flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): warp reductions, 16-byte row loads into float32
-// shared memory, stores and roundings in the input dtype, and the dispatch
-// over dtype, head dim and block shape that the plain C launchers use.
+// Pieces shared by the float32 CUDA-core kernels of flash_fwd.cu, flash_dq.cu
+// and flash_dkv.cu: warp reductions, 16-byte row loads into shared memory, and
+// the dispatch over head dim and block shape that the plain C launchers use.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -23,41 +21,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One 16-byte chunk of a row from device memory into float32 shared memory.
-template <typename T>
-struct Chunk;
-
-template <>
-struct Chunk<float> {
-  static constexpr int kElems = 4;
-  __device__ __forceinline__ static void load(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-};
-
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src, float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-  }
-};
-
-// Copies rows [0, n) of a (rows, D) slab into shared memory with row stride
-// `stride` floats, all threads of the block taking part.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(const T* src, float* dst, int n, int stride) {
-  constexpr int kChunk = Chunk<T>::kElems;
-  constexpr int kRowChunks = D / kChunk;
+// Copies rows [0, n) of a (rows, D) float32 slab into shared memory with row
+// stride `stride` floats, 16 bytes at a time, all threads of the block taking
+// part.
+template <int D>
+__device__ __forceinline__ void load_rows(const float* src, float* dst, int n, int stride) {
+  constexpr int kRowChunks = D / 4;
   for (int c = threadIdx.x; c < n * kRowChunks; c += blockDim.x) {
     const int j = c / kRowChunks;
-    const int col = (c % kRowChunks) * kChunk;
-    Chunk<T>::load(src + static_cast<size_t>(j) * D + col, dst + j * stride + col);
+    const int col = (c % kRowChunks) * 4;
+    *reinterpret_cast<float4*>(dst + j * stride + col) =
+        *reinterpret_cast<const float4*>(src + static_cast<size_t>(j) * D + col);
   }
 }
 
@@ -77,19 +51,6 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
   return acc;
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// x rounded to T and back: the JAX kernels' `.astype(v.dtype)` before a product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Output columns a lane owns: lane + 32 * i for i < kPer(D).  For D < 32
 // lanes D..31 own none (col_ok false) and sit idle in the products.
 template <int D>
@@ -98,14 +59,13 @@ struct Cols {
   __device__ __forceinline__ static bool ok(int lane) { return D >= 32 || lane < D; }
 };
 
-// Calls F::template run<T, D, ROWS, KPL>() for the given dtype code (0 =
-// float32, 1 = bfloat16), head dim and block shape; rows per block in
-// {4, 8, 16}, tile in {32, 64} rows.  Unsupported values give
-// cudaErrorInvalidValue.
-template <typename F, typename T, int D>
+// Calls F::template run<D, ROWS, KPL>() for the given head dim and block
+// shape: rows per block in {4, 8, 16}, tile in {32, 64} rows.  Unsupported
+// values give cudaErrorInvalidValue.
+template <typename F, int D>
 cudaError_t by_blocks(int rows, int tile, const F& f) {
 #define FLASH_CASE(R, K) \
-  if (rows == R && tile == K) return f.template run<T, D, R, K / 32>();
+  if (rows == R && tile == K) return f.template run<D, R, K / 32>();
   FLASH_CASE(4, 32)
   FLASH_CASE(4, 64)
   FLASH_CASE(8, 32)
@@ -116,20 +76,14 @@ cudaError_t by_blocks(int rows, int tile, const F& f) {
   return cudaErrorInvalidValue;
 }
 
-template <typename F, typename T>
-cudaError_t by_dim(int d, int rows, int tile, const F& f) {
-  if (d == 16) return by_blocks<F, T, 16>(rows, tile, f);
-  if (d == 32) return by_blocks<F, T, 32>(rows, tile, f);
-  if (d == 64) return by_blocks<F, T, 64>(rows, tile, f);
-  if (d == 128) return by_blocks<F, T, 128>(rows, tile, f);
-  return cudaErrorInvalidValue;
-}
-
+// The float32 kernels' dispatch: their grid puts bh on y, so bh <= 65535.
 template <typename F>
-cudaError_t dispatch(int dtype, int d, int rows, int tile, int bh, int seq, const F& f) {
-  if (bh <= 0 || bh > 65535 || seq <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return by_dim<F, float>(d, rows, tile, f);
-  if (dtype == 1) return by_dim<F, __nv_bfloat16>(d, rows, tile, f);
+cudaError_t by_dim(int d, int rows, int tile, int bh, const F& f) {
+  if (bh > 65535) return cudaErrorInvalidValue;
+  if (d == 16) return by_blocks<F, 16>(rows, tile, f);
+  if (d == 32) return by_blocks<F, 32>(rows, tile, f);
+  if (d == 64) return by_blocks<F, 64>(rows, tile, f);
+  if (d == 128) return by_blocks<F, 128>(rows, tile, f);
   return cudaErrorInvalidValue;
 }
 

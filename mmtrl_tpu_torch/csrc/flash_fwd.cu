@@ -57,8 +57,6 @@
 // wgmma runs in TF32 (about three decimal digits), which would break
 // float32's agreement with the plain version to 1e-5.  It is bound by
 // shared-memory reads, well above the device-memory bound.
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
@@ -75,16 +73,12 @@ template <int D>
 struct Sm90Tiles {
   static constexpr int kThreads = 128 + 32;  // the consumers + the producer warp
   static constexpr int kStages = 2;
-  static constexpr int kDC = D < 64 ? D : 64;  // columns of one swizzled chunk
-  static constexpr int kChunks = D / kDC;
-  static constexpr int kRowBytes = kDC * 2;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;  // one K or one V tile
+  static constexpr int kQBytes = sm90::Tile<D>::kBytes;
+  static constexpr int kKVBytes = sm90::Tile<D>::kBytes;  // one K or one V tile
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
   // + room to align the base to 1024 bytes; barriers: Q full and empty, and
   // per stage K and V full and empty
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 + 4 * kStages);
-  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0, "tiles stay 1024-aligned");
 };
 
 // q, k, v: tensor maps over (BH, S, D) bf16 (sm90::bf16_head_map) with a
@@ -99,7 +93,6 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
          float* __restrict__ lse, int bh, int seq, float scale_log2) {
   using L = Sm90Tiles<D>;
   constexpr int kStages = L::kStages;
-  constexpr int RB = L::kRowBytes;
   constexpr int BQ = kBQ, BK = kBK;
 
   extern __shared__ uint8_t smem_raw[];
@@ -120,13 +113,9 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
 
   // Item i: the highest query tiles of every head first, since they see the
   // most keys.  Key tiles up to the tile's last row.  A block takes one item
-  // a round, in snake order (forward in even rounds, backward in odd ones),
-  // so that the heavy early items and the light late ones even out.
+  // a round, in snake order (sm90::snake_item).
   const int n_qt = (seq + BQ - 1) / BQ;
   const int n_items = n_qt * bh;
-  auto item_of = [&](int r) {
-    return r * gridDim.x + (r % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
-  };
   auto item_q0 = [&](int i) { return (n_qt - 1 - i / bh) * BQ; };
   auto item_tiles = [&](int i) { return (min(item_q0(i) + BQ, seq) - 1) / BK + 1; };
 
@@ -154,14 +143,12 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
   if (warp == 4) {  // the producer warp; one lane issues every load
     if (lane == 0) {
       int g0 = 0;  // tiles of the earlier items
-      for (int n = 0, i = item_of(0); i < n_items; i = item_of(++n)) {
+      for (int n = 0, i = sm90::snake_item(0); i < n_items; i = sm90::snake_item(++n)) {
         const int head = i % bh;
         const int n_tiles = item_tiles(i);
         if (n > 0) sm90::mbar_wait(q_empty, (n - 1) & 1);
         sm90::mbar_expect_tx(q_full, L::kQBytes);
-        for (int c = 0; c < L::kChunks; ++c) {
-          sm90::tma_load_3d(q_s + c * BQ * RB, &tq, q_full, c * L::kDC, item_q0(i), head);
-        }
+        sm90::tma_load_tile<D>(q_s, &tq, q_full, item_q0(i), head);
         // K and V tile t of this item into their rings; V sits kKVBytes
         // after K in each stage.  K runs one tile ahead of V, as the
         // consumers need them: K(t + 1) is asked for before V(t).
@@ -170,10 +157,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
           const int g = g0 + t, st = g % kStages;
           if (g >= kStages) sm90::mbar_wait(&empty[st], (g / kStages - 1) & 1);
           sm90::mbar_expect_tx(&full[st], L::kKVBytes);
-          for (int c = 0; c < L::kChunks; ++c) {
-            sm90::tma_load_3d(k_s(st) + offset + c * BK * RB, map, &full[st], c * L::kDC,
-                              t * BK, head);
-          }
+          sm90::tma_load_tile<D>(k_s(st) + offset, map, &full[st], t * BK, head);
         };
         load(&tk, 0, k_full, k_empty, 0);
         for (int t = 0; t < n_tiles; ++t) {
@@ -195,7 +179,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
   const int row_off = 16 * warp + lane / 4;
 
   int g0 = 0;
-  for (int n = 0, i = item_of(0); i < n_items; i = item_of(++n)) {
+  for (int n = 0, i = sm90::snake_item(0); i < n_items; i = sm90::snake_item(++n)) {
     const int q0 = item_q0(i);
     const int head = i % bh;
     const int n_tiles = item_tiles(i);
@@ -216,17 +200,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
       float s[BK / 2];
       sm90::mbar_wait(&k_full[st], parity);
       sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk / (L::kDC / 16), within = kk % (L::kDC / 16);
-        const uint64_t a = sm90::smem_desc<RB>(q_s + c * BQ * RB + within * 32, 16, 8 * RB);
-        const uint64_t b = sm90::smem_desc<RB>(k_s(st) + c * BK * RB + within * 32, 16, 8 * RB);
-        if (kk == 0) {
-          sm90::Wgmma<BK>::ss_first(s, a, b);
-        } else {
-          sm90::Wgmma<BK>::ss(s, a, b);
-        }
-      }
+      sm90::wgmma_abt<D>(s, q_s, k_s(st));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(s);
@@ -276,12 +250,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
       // O += P V, then V's stage is free.
       sm90::mbar_wait(&v_full[st], parity);
       sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // V is MN-major: 8-key groups RB * 8 apart, column chunks BK * RB apart.
-        const uint64_t b = sm90::smem_desc<RB>(v_s(st) + kk * 16 * RB, BK * RB, 8 * RB);
-        sm90::Wgmma<D>::rs(acc, p[kk], b);
-      }
+      sm90::wgmma_ab<D>(acc, p, v_s(st));  // V read MN-major
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -334,13 +303,7 @@ struct Sm90Launch {
                                static_cast<int>(L::kSmem));
     if (err != cudaSuccess) return err;
     // As many blocks as the card holds at once, found once per kernel.
-    static const int resident = [&] {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L::kThreads, L::kSmem);
-      return sms * per_sm;
-    }();
+    static const int resident = sm90::resident_blocks(kernel, L::kThreads, L::kSmem);
     if (resident <= 0) return cudaErrorInvalidConfiguration;
     const int items = (seq + kBQ - 1) / kBQ * bh;
     kernel<<<min(items, resident), L::kThreads, L::kSmem, stream>>>(
@@ -356,16 +319,6 @@ struct Sm90Smem {
     return static_cast<int>(Sm90Tiles<D>::kSmem);
   }
 };
-
-// F::run<D>() for head dim d in {16, 32, 64, 128}; `otherwise` for any other.
-template <typename F>
-int by_head_dim(int d, int otherwise, const F& f) {
-  if (d == 16) return f.template run<16>();
-  if (d == 32) return f.template run<32>();
-  if (d == 64) return f.template run<64>();
-  if (d == 128) return f.template run<128>();
-  return otherwise;
-}
 
 // ---- float32: CUDA cores -----------------------------------------------------
 
@@ -395,7 +348,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool active = row < seq;
   const size_t head = static_cast<size_t>(blockIdx.y) * seq * D;
 
-  load_rows<float, D>(q + head + static_cast<size_t>(row0) * D, q_s, last_row - row0 + 1, D);
+  load_rows<D>(q + head + static_cast<size_t>(row0) * D, q_s, last_row - row0 + 1, D);
 
   float acc[kPer];
 #pragma unroll
@@ -406,8 +359,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t0 = 0; t0 <= last_row; t0 += kTile) {
     const int n = min(kTile, seq - t0);
     __syncthreads();  // the previous tile is consumed (first pass: q_s is written)
-    load_rows<float, D>(k + head + static_cast<size_t>(t0) * D, k_s, n, kKStride);
-    load_rows<float, D>(v + head + static_cast<size_t>(t0) * D, v_s, n, D);
+    load_rows<D>(k + head + static_cast<size_t>(t0) * D, k_s, n, kKStride);
+    load_rows<D>(v + head + static_cast<size_t>(t0) * D, v_s, n, D);
     __syncthreads();
     if (!active || t0 > row) continue;  // tile strictly above this row's diagonal
 
@@ -463,10 +416,8 @@ struct Fwd {
   float scale;
   cudaStream_t stream;
 
-  // Called as by_dim<Fwd, float> only: T is float.
-  template <typename T, int D, int ROWS, int KPL>
+  template <int D, int ROWS, int KPL>
   cudaError_t run() const {
-    static_assert(std::is_same<T, float>::value, "the CUDA-core forward is float32 only");
     constexpr int kTile = 32 * KPL;
     const size_t smem = sizeof(float) * (ROWS * D + kTile * (D + 4) + kTile * D);
     return launch(flash_fwd_kernel<D, ROWS, KPL>, ROWS, seq, bh, smem, stream,
@@ -489,14 +440,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          float scale, void* stream) {
   if (bh <= 0 || seq <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (bh > 65535) return cudaErrorInvalidValue;  // grid.y
-    return by_dim<Fwd, float>(d, block_q, block_k, Fwd{q, k, v, o, lse, bh, seq, scale, s});
-  }
+  if (dtype == 0) return by_dim(d, block_q, block_k, bh, Fwd{q, k, v, o, lse, bh, seq, scale, s});
   if (dtype != 1 || block_q != kBQ || block_k != kBK) return cudaErrorInvalidValue;
-  return by_head_dim(d, cudaErrorInvalidValue, Sm90Launch{q, k, v, o, lse, bh, seq, scale, s});
+  return sm90::by_head_dim(d, cudaErrorInvalidValue,
+                           Sm90Launch{q, k, v, o, lse, bh, seq, scale, s});
 }
 
 // Dynamic shared memory, in bytes, of the bf16 kernel at head dim d; -1 for
 // a head dim it does not take.
-extern "C" int flash_fwd_bf16_smem(int d) { return by_head_dim(d, -1, Sm90Smem{}); }
+extern "C" int flash_fwd_bf16_smem(int d) { return sm90::by_head_dim(d, -1, Sm90Smem{}); }

@@ -307,7 +307,100 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// ---- 64-row tiles ------------------------------------------------------------
+
+// A tile of 64 rows of head dim D as TMA lands it: kChunks chunks of kDC
+// columns, each 64 rows of kRowBytes under the swizzle of that row length.
+// Every tile of the three bf16 kernels (Q, K, V, dO) has this shape.
+template <int D>
+struct Tile {
+  static constexpr int kRows = 64;
+  static constexpr int kDC = D < 64 ? D : 64;
+  static constexpr int kChunks = D / kDC;
+  static constexpr int kRowBytes = kDC * 2;
+  static constexpr int kBytes = kRows * D * 2;
+  static_assert(kBytes % 1024 == 0, "tiles stay 1024-aligned");
+};
+
+// Loads rows row .. row + 63 of one head through a bf16_head_map with a
+// 64-row box into dst; kBytes complete on bar.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int head) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < T::kChunks; ++c) {
+    tma_load_3d(dst + c * T::kRows * T::kRowBytes, map, bar, c * T::kDC, row, head);
+  }
+}
+
+// d = A B^T (m64n64, k = D): A and B are 64-row tiles, both read K-major
+// (the head dim contiguous).  The first k-step overwrites d.
+template <int D>
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], const uint8_t* a, const uint8_t* b) {
+  using T = Tile<D>;
+  constexpr int RB = T::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k-step kk: column chunk c, 32 bytes a k-step inside the swizzled row
+    const int c = kk / (T::kDC / 16), within = kk % (T::kDC / 16);
+    const uint64_t da = smem_desc<RB>(a + c * T::kRows * RB + within * 32, 16, 8 * RB);
+    const uint64_t db = smem_desc<RB>(b + c * T::kRows * RB + within * 32, 16, 8 * RB);
+    if (kk == 0) {
+      Wgmma<64>::ss_first(d, da, db);
+    } else {
+      Wgmma<64>::ss(d, da, db);
+    }
+  }
+}
+
+// d += A B (m64nD, k = 64): A a 64 x 64 bf16 operand in registers, as four
+// k16 fragments in the accumulator layout (pack_bf16 of a score tile); B a
+// 64-row tile read MN-major: 8-row groups 8 * RB apart, column chunks
+// 64 * RB apart.
+template <int D>
+__device__ __forceinline__ void wgmma_ab(float (&d)[D / 2], const uint32_t (&a)[4][4],
+                                         const uint8_t* b) {
+  using T = Tile<D>;
+  constexpr int RB = T::kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    Wgmma<D>::rs(d, a[kk], smem_desc<RB>(b + kk * 16 * RB, T::kRows * RB, 8 * RB));
+  }
+}
+
+// ---- persistent grid ---------------------------------------------------------
+
+// The work item a block takes in round r: one item a round in snake order
+// (forward in even rounds, backward in odd ones), so that when items are
+// numbered heaviest first, the heavy early items and the light late ones
+// even out over the blocks.
+__device__ __forceinline__ int snake_item(int r) {
+  return r * gridDim.x + (r % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
 // ---- host --------------------------------------------------------------------
+
+// F::run<D>() for head dim d in {16, 32, 64, 128}; `otherwise` for any other.
+template <typename F>
+int by_head_dim(int d, int otherwise, const F& f) {
+  if (d == 16) return f.template run<16>();
+  if (d == 32) return f.template run<32>();
+  if (d == 64) return f.template run<64>();
+  if (d == 128) return f.template run<128>();
+  return otherwise;
+}
+
+// The blocks of `kernel` the card holds at once (SMs x blocks an SM), after
+// its dynamic shared memory is set; a persistent grid launches at most this.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  return sms * per_sm;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

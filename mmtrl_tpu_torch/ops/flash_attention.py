@@ -6,27 +6,30 @@ kernels, one for each Pallas kernel of the JAX package:
 
 - ``csrc/flash_fwd.cu`` (``_fwd_kernel``): the causal online softmax with
   float32 scores and accumulation; writes O in the input dtype and the
-  per-row logsumexp in float32.  It holds two kernels and takes one by
-  dtype: bfloat16 runs on the tensor cores (``wgmma`` on tiles that TMA
-  loads into shared memory); float32 runs on the CUDA cores, because a
-  float32 ``wgmma`` computes in TF32, about three decimal digits, which
-  would break float32's agreement with the plain version to 1e-5.  This is
-  a dispatch on dtype: every call of a dtype takes its kernel, and neither
-  stands in for the other;
+  per-row logsumexp in float32;
 - ``csrc/flash_dq.cu`` (``_dq_kernel``) and ``csrc/flash_dkv.cu``
   (``_dkv_kernel``): dQ, and dK with dV, from the probabilities recomputed
-  from that logsumexp and delta = rowsum(dO * O), on the CUDA cores.
+  from that logsumexp and delta = rowsum(dO * O).
+
+Each source holds two kernels and takes one by dtype: bfloat16 runs on the
+tensor cores (``wgmma`` on tiles that TMA loads into shared memory, on
+``csrc/flash_sm90.cuh``); float32 runs on the CUDA cores, because a float32
+``wgmma`` computes in TF32, about three decimal digits, which would break
+float32's agreement with the plain version to 1e-5.  This is a dispatch on
+dtype: every call of a dtype takes its kernel, and neither stands in for
+the other.
 
 None of them forms the (S, S) score matrix in device memory.  Like the
 Pallas kernels they round the probabilities (and dS) to the input dtype
 before each product with a (S, D) operand.
 
 The kernel-level wrappers take a ``(block_q, block_k)`` pair, 0 for each
-kernel's default: the CUDA-core kernels choose from ``BLOCK_Q_CHOICES`` x
-``BLOCK_K_CHOICES``, and the bf16 forward has one tile, ``BF16_FWD_BLOCKS``.
-A pair that the kernel does not take raises ``ValueError`` naming it, for
-CPU and CUDA tensors alike.  ``causal_flash_attention``, which the model
-calls, always runs every kernel at its default.
+kernel's default: the float32 CUDA-core kernels choose from
+``BLOCK_Q_CHOICES`` x ``BLOCK_K_CHOICES``, and each bf16 kernel has the one
+tile ``BF16_BLOCKS``.  A pair that the kernel does not take raises
+``ValueError`` naming it, for CPU and CUDA tensors alike.
+``causal_flash_attention``, which the model calls, always runs every kernel
+at its default.
 
 A CUDA tensor always launches the kernels, at every sequence length: the
 JAX package's ``PALLAS_MIN_SEQ`` crossover was measured on a TPU and is not
@@ -44,16 +47,16 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1e30
-# The CUDA-core kernels (forward in float32, dQ and dK/dV in both dtypes):
-# block_q rows per CUDA block, one warp each; block_k rows of the other
-# operand per shared-memory tile.
+# The float32 CUDA-core kernels: block_q rows per CUDA block, one warp
+# each; block_k rows of the other operand per shared-memory tile.
 DEFAULT_BLOCK_Q = 8
 DEFAULT_BLOCK_K = 32
 BLOCK_Q_CHOICES = (4, 8, 16)
 BLOCK_K_CHOICES = (32, 64)
-# The bfloat16 forward on the tensor cores has one tile: 64 query rows per
-# CUDA block (one consumer warpgroup) by 64 keys per TMA tile.
-BF16_FWD_BLOCKS = (64, 64)
+# Each bfloat16 kernel on the tensor cores has one tile: 64 rows per CUDA
+# block (one consumer warpgroup; query rows for the forward and dQ, key rows
+# for dK/dV) by 64 rows of the other operand per TMA tile.
+BF16_BLOCKS = (64, 64)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -124,8 +127,8 @@ def _blocks(kernel: str, dtype: torch.dtype, block_q: int, block_k: int) -> Tupl
     """The pair ``kernel`` ("flash_fwd", "flash_dq" or "flash_dkv") runs with
     in ``dtype``: each 0 replaced by its default; a value it does not take
     raises, never replaced."""
-    if kernel == "flash_fwd" and dtype == torch.bfloat16:
-        default_q, default_k = BF16_FWD_BLOCKS
+    if dtype == torch.bfloat16:
+        default_q, default_k = BF16_BLOCKS
         qs, ks = (default_q,), (default_k,)
     else:
         qs, ks = BLOCK_Q_CHOICES, BLOCK_K_CHOICES
@@ -154,8 +157,8 @@ def _check(q, k, v) -> None:
 def _check_kernel_inputs(first: torch.Tensor, heads_on_grid_y: bool,
                          **tensors: torch.Tensor) -> None:
     """What every kernel requires of a CUDA call, beyond ``_check``;
-    ``first`` is the (B, H, S, D) q.  The CUDA-core kernels put B * H on
-    grid.y (``heads_on_grid_y``); the bf16 forward's grid is 1-D."""
+    ``first`` is the (B, H, S, D) q.  The float32 CUDA-core kernels put
+    B * H on grid.y (``heads_on_grid_y``); the bf16 kernels' grid is 1-D."""
     if first.device.type != "cuda":
         raise ValueError(f"no kernel for device {first.device}")
     B, H, S, D = first.shape
@@ -183,9 +186,9 @@ def _library(name: str) -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    if name == "flash_fwd":
-        lib.flash_fwd_bf16_smem.argtypes = [ctypes.c_int]
-        lib.flash_fwd_bf16_smem.restype = ctypes.c_int
+    smem = getattr(lib, f"{name}_bf16_smem")  # dynamic shared memory by head dim
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_int
     return lib
 
 
@@ -216,7 +219,7 @@ def flash_attention_fwd(
     would compute in TF32).  ``block_q`` (query rows per CUDA block) and
     ``block_k`` (keys per tile) are used as given, 0 for the default: the
     float32 kernel takes ``BLOCK_Q_CHOICES`` x ``BLOCK_K_CHOICES``, the
-    bf16 kernel only ``BF16_FWD_BLOCKS``.  CPU tensors take the plain
+    bf16 kernel only ``BF16_BLOCKS``.  CPU tensors take the plain
     version.
     """
     global launches
@@ -249,7 +252,8 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     if q.device.type != "cpu":
-        _check_kernel_inputs(q, True, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+        _check_kernel_inputs(q, q.dtype == torch.float32, q=q, k=k, v=v, do=do, lse=lse,
+                             delta=delta)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, block_q: int = 0, block_k: int = 0):
@@ -298,10 +302,12 @@ def flash_attention_bwd(
     ``delta`` = rowsum(dO * O), both (B, H, S).
 
     CUDA tensors launch ``flash_dq`` and then ``flash_dkv``, with the
-    forward's requirements on every tensor.  ``block_q`` is the rows per
-    CUDA block (query rows for dQ, key rows for dK/dV) and ``block_k`` the
-    rows of the other operand per shared-memory tile; 0 picks the default.
-    CPU tensors take the plain version.
+    forward's requirements on every tensor; as in the forward, bfloat16
+    takes the tensor-core kernels and float32 the CUDA-core ones.
+    ``block_q`` is the rows per CUDA block (query rows for dQ, key rows for
+    dK/dV) and ``block_k`` the rows of the other operand per tile; 0 picks
+    the default: ``BF16_BLOCKS`` is the bf16 kernels' one pair.  CPU tensors
+    take the plain version.
     """
     if q.device.type == "cpu":
         _check_bwd(q, k, v, do, lse, delta)

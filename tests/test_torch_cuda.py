@@ -45,7 +45,7 @@ def _check_fwd(q, k, v, blocks, heads=None):
     "dtype,shape,blocks",
     [(torch.float32, (16, 4, 90, 128), (0, 0)), (torch.float32, (2, 4, 37, 64), (4, 64)),
      (torch.float32, (1, 2, 300, 128), (16, 64)), (torch.bfloat16, (16, 4, 90, 128), (0, 0)),
-     (torch.bfloat16, (2, 4, 37, 64), fa.BF16_FWD_BLOCKS), (torch.bfloat16, (1, 2, 300, 128), (0, 0))]
+     (torch.bfloat16, (2, 4, 37, 64), fa.BF16_BLOCKS), (torch.bfloat16, (1, 2, 300, 128), (0, 0))]
     + [(torch.bfloat16, (2, 3, S, D), (0, 0)) for D in (16, 32, 64, 128) for S in (1, 63, 64, 65, 90)],
 )
 def test_flash_fwd_matches_plain_version(dtype, shape, blocks):
@@ -93,16 +93,10 @@ def test_flash_fwd_heads_past_grid_y():
         fa.flash_attention_fwd(q.float(), k.float(), v.float())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "shape,blocks",
-    [((2, 4, 90, 128), (0, 0)), ((2, 4, 37, 64), (4, 64)), ((2, 4, 37, 64), (16, 32)),
-     ((1, 2, 37, 16), (0, 0)), ((1, 3, 70, 32), (8, 64))],
-)
-def test_flash_bwd_matches_plain_version(shape, blocks, dtype):
-    _need_gpu()
-    q, k, v, do = _qkv(shape, dtype, 2, 4)
+def _check_bwd(q, k, v, do, blocks, heads=None):
+    """One launch of each backward kernel against the plain backward on the
+    same lse and delta, over the (B, H) heads selected by the boolean mask
+    ``heads`` (all by default)."""
     o, lse = fa.flash_attention_fwd(q, k, v)  # its own default blocks
     delta = (do.float() * o.float()).sum(-1)
     before = (fa.dq_launches, fa.dkv_launches)
@@ -111,11 +105,59 @@ def test_flash_bwd_matches_plain_version(shape, blocks, dtype):
     assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
     # the same float32 sums in another order; in bf16 a rounding of P or dS
     # to bf16 may flip, so 2^-6 of the tensor's largest magnitude
-    tol = 1e-5 if dtype == torch.float32 else 2**-6
+    tol = 1e-5 if q.dtype == torch.float32 else 2**-6
     for g, ref in zip(grads, fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)):
-        assert g.dtype == dtype
+        assert g.dtype == q.dtype
+        if heads is not None:
+            g, ref = g[heads], ref[heads]
         scale = max(1.0, ref.float().abs().max().item())
         assert (g.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+# float32 takes the CUDA-core kernels at their block choices, bfloat16 the
+# tensor-core kernels at their one tile: the model's lengths, a ragged tile,
+# one row and a tile and one row, at the smallest and largest head dims.
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,shape,blocks",
+    [(torch.float32, (2, 4, 90, 128), (0, 0)), (torch.float32, (2, 4, 37, 64), (4, 64)),
+     (torch.float32, (2, 4, 37, 64), (16, 32)), (torch.float32, (1, 2, 37, 16), (0, 0)),
+     (torch.float32, (1, 3, 70, 32), (8, 64)), (torch.bfloat16, (2, 4, 90, 128), (0, 0)),
+     (torch.bfloat16, (2, 4, 37, 64), fa.BF16_BLOCKS), (torch.bfloat16, (1, 2, 37, 16), (0, 0)),
+     (torch.bfloat16, (1, 3, 70, 32), fa.BF16_BLOCKS), (torch.bfloat16, (1, 2, 300, 128), (0, 0))]
+    + [(torch.bfloat16, (2, 3, S, D), (0, 0)) for D in (16, 128) for S in (1, 65, 90)],
+)
+def test_flash_bwd_matches_plain_version(dtype, shape, blocks):
+    _need_gpu()
+    _check_bwd(*_qkv(shape, dtype, 2, 4), blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 90])
+def test_flash_bwd_nan_head_stays_in_its_head(S):
+    """One head's q, k, v and dO all NaN, and so its lse and delta: the
+    other heads still equal the plain backward, so no tile or lse/delta load
+    reads past a head's last row."""
+    _need_gpu()
+    q, k, v, do = _qkv((2, 4, S, 128), torch.bfloat16, 3, 4)
+    for t in (q, k, v, do):
+        t[0, 1] = float("nan")
+    others = torch.ones(2, 4, dtype=torch.bool, device="cuda")
+    others[0, 1] = False
+    _check_bwd(q, k, v, do, (0, 0), others)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_heads_past_grid_y():
+    """B * H > 65535: the bf16 backward kernels' 1-D persistent grids take
+    it; the float32 kernels, with B * H on grid.y, refuse it."""
+    _need_gpu()
+    q, k, v, do = _qkv((2, 35000, 1, 16), torch.bfloat16, 4, 4)
+    _check_bwd(q, k, v, do, (0, 0))
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    lse = torch.zeros(q.shape[:3], device="cuda")
+    with pytest.raises(ValueError, match="B \\* H <= 65535"):
+        fa.flash_attention_dkv(q, k, v, do, lse, lse)
 
 
 @pytest.mark.cuda

@@ -151,7 +151,8 @@ def test_bwd_wrappers_take_the_plain_version_on_cpu():
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
     dq, dk, dv = tfa.flash_attention_bwd_plain(*args)
-    assert all(torch.equal(a, b) for a, b in zip(tfa.flash_attention_bwd(*args, 4, 64), (dq, dk, dv)))
+    bwd = tfa.flash_attention_bwd(*args, *tfa.BF16_BLOCKS)
+    assert all(torch.equal(a, b) for a, b in zip(bwd, (dq, dk, dv)))
     assert torch.equal(tfa.flash_attention_dq(*args), dq)
     assert all(torch.equal(a, b) for a, b in zip(tfa.flash_attention_dkv(*args), (dk, dv)))
     with pytest.raises(ValueError, match="do must match"):
@@ -200,9 +201,10 @@ def test_unsupported_blocks_raise(dtype, blocks):
 
 
 def test_backward_blocks_raise_with_the_forward_kernels_name():
-    """The CUDA-core pair (8, 32) that the backward takes is no pair for the
-    bf16 forward, and the bf16 forward's (64, 64) none for the backward: each
-    raises naming the kernel that refuses it, before anything runs."""
+    """The float32 CUDA-core pair (8, 32) is no pair for any bf16 kernel,
+    and the bf16 kernels' one tile (64, 64) none for the float32 backward:
+    each raises naming the kernel that refuses it, before anything runs;
+    (64, 64) runs every bf16 kernel."""
     q, k, v = _qkv(0, 1, 2, 8, 64, "bfloat16")
     with pytest.raises(ValueError, match="flash_fwd in torch.bfloat16"):
         tfa.flash_attention_fwd(q, k, v, 8, 32)
@@ -211,10 +213,34 @@ def test_backward_blocks_raise_with_the_forward_kernels_name():
     o, lse = tfa.flash_attention_fwd(q, k, v, 64, 64)
     do = torch.ones_like(o)
     delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    for a, b in zip(tfa.flash_attention_bwd(*args, 64, 64), tfa.flash_attention_bwd_plain(*args)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="flash_dq in torch.bfloat16"):
-        tfa.flash_attention_bwd(q, k, v, do, lse, delta, 64, 64)
+        tfa.flash_attention_bwd(*args, 8, 32)
     with pytest.raises(ValueError, match="flash_dkv in torch.bfloat16"):
-        tfa.flash_attention_dkv(q, k, v, do, lse, delta, 64, 64)
+        tfa.flash_attention_dkv(*args, 8, 32)
+    f32 = [t.float() for t in (q, k, v, do)] + [lse, delta]
+    with pytest.raises(ValueError, match="flash_dq in torch.float32"):
+        tfa.flash_attention_bwd(*f32, 64, 64)
+
+
+# Every float32 CUDA-core pair and the bf16 tile's neighbours: none is the
+# bf16 backward kernels' one tile, so each raises naming the kernel, before
+# anything runs.
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+@pytest.mark.parametrize(
+    "blocks",
+    [(4, 32), (4, 64), (8, 32), (8, 64), (16, 32), (16, 64), (64, 32), (32, 64), (128, 64),
+     (64, 128), (128, 128)],
+)
+def test_bf16_backward_takes_only_its_tile(kernel, blocks):
+    q, k, v, do = _qkvdo(37, 64, "bfloat16")
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    wrapper = getattr(tfa, kernel.replace("flash_", "flash_attention_"))
+    with pytest.raises(ValueError, match=f"{kernel} in torch.bfloat16 takes block_q in \\(64,\\)"):
+        wrapper(q, k, v, do, lse, delta, *blocks)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -125,7 +125,7 @@ def main() -> int:
         "attention_kernels": [
             {"name": name[:80], "device_ms": t / 1e3, "calls": calls[name],
              "share_of_busy": t / 1e6 / busy_s}
-            for name, t in us.most_common() if "fwd_sm90" in name or "flash_" in name
+            for name, t in us.most_common() if "_sm90<" in name or "flash_" in name
         ],
         "top_kernels": [
             {"name": name[:80], "device_ms": t / 1e3, "calls": calls[name],
