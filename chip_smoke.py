@@ -31,7 +31,21 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 on the card: warm steps, then timed steps; every step must
                 launch each of the three kernels once per layer.  Then
                 collect -> train -> evaluate in Minecraft2d on the card.
-7. timing    -- each kernel, its plain version and the PyTorch call that
+7. ppo       -- the online phase at full width (two big towers, casl,
+                LSTM 128): the agent's outputs and one ``update_from_rollout``
+                on the card against the CPU, three PPO updates through
+                ``scripts.train`` (16 envs x 128 steps, 4 x 4 minibatches),
+                update 4 in memory (rollout and update timed apart),
+                ``scripts.dt_minecraft --policy-from`` the checkpoint:
+                collect, train 20 steps, evaluate, with 6 launches of each
+                kernel per train step and 384 forward launches in the
+                evaluation; last a ``--load-from`` resume that runs update 4
+                (profiled, in a child process) and equals update 4 in
+                memory, generator stream included.  The agent and update
+                checks take input scale 1 (the run keeps the reference's
+                255).  cuDNN's deterministic flag and the run root are
+                restored afterwards.
+8. timing    -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training and long-context shapes, beside the bound
@@ -548,6 +562,246 @@ def phase_train(smi: str):
     return counts, step_s
 
 
+# The online phase at the repo's own width (scripts/train.py): two big towers,
+# casl attention, sum fusion, LSTM 128, Minecraft2d's 4 actions.
+PPO_AGENT = dict(num_actions=4, conv_type="big", attn_type="casl", fusion_type="sum")
+PPO_PARAMS = 3_722_343
+PPO_CHECK_T, PPO_CHECK_B = 16, 16
+# The card-against-CPU checks take the agent at input scale 1: Minecraft2d's
+# observations already lie in [-1, 1], and at the reference's 255 (which the
+# PPO run keeps) both towers' features come out 255 times smaller, so the
+# outputs would hardly depend on the towers that do most of the work.
+PPO_CHECK_AGENT = dict(PPO_AGENT, input_scale=1.0)
+PPO_RUN = ["--attn-type", "casl", "--num-envs", "16", "--num-steps", "128",
+           "--num-minibatches", "4", "--update-epochs", "4"]
+# Logits, values and carry, card against CPU in float32 (no TF32 on either
+# side): the towers' convs sum up to 3,136 terms in other orders (cuDNN
+# against oneDNN), then 16 LSTM steps carry the differences; a few float32
+# roundings (6e-8 each) of each output's largest magnitude, held to this
+# share of it.
+PPO_AGENT_TOL_OF_MAX = 1e-5
+# Parameters after one update (16 Adam steps at lr 2.5e-4, eps 1e-5) on the
+# card against the CPU from the same rollout and permutations: the gradients
+# differ by float32 summation order and an Adam step's sensitivity to its
+# gradient is bounded by eps, so the parameters agree far inside one step's
+# size.  Held to 1e-5 absolute (4% of one step, 0.25% of the 16 steps).
+PPO_PARAM_ATOL = 1e-5
+PPO_RESUME_ARGS = PPO_RUN + ["--total-timesteps", "8192"]
+
+
+def phase_ppo(smi: str):
+    """The online PPO path at full width: the agent and one update on the
+    card against the CPU, three updates through ``scripts.train``, update 4
+    in memory, PPO -> DT through ``scripts.dt_minecraft``, then a profiled
+    ``--load-from`` resume in a child process.  Returns the pipeline's
+    kernel launches.  The entry points set cuDNN's deterministic flag and the
+    run root for the rest of the process; both are restored afterwards, so
+    the timing phase runs as it would without this one."""
+    import os
+    import tempfile
+
+    deterministic, run_root = torch.backends.cudnn.deterministic, os.environ.get("MMTRL_RUN_ROOT")
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_") as tmp:
+            return ppo_checks(smi, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if run_root is None:
+            os.environ.pop("MMTRL_RUN_ROOT", None)
+        else:
+            os.environ["MMTRL_RUN_ROOT"] = run_root
+
+
+def ppo_checks(smi: str, tmp: str):
+    import os
+
+    from mmtrl_tpu_torch.algos.ppo import PPOConfig, make_recurrent_ppo
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+    from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+    from mmtrl_tpu_torch.scripts import dt_minecraft, train
+
+    # 1. the agent, card against CPU, on a CPU rollout of real observations
+    torch.manual_seed(SEED)
+    agent = MultimodalRecurrentAgent(**PPO_CHECK_AGENT)
+    cpu_agent = MultimodalRecurrentAgent(**PPO_CHECK_AGENT, device="cpu")
+    cpu_agent.load_state_dict(agent.state_dict())
+    n_params = sum(p.numel() for p in agent.parameters())
+    check(n_params == PPO_PARAMS, f"the online agent has {n_params} parameters")
+    T, B = PPO_CHECK_T, PPO_CHECK_B
+    cfg = PPOConfig(num_envs=B, num_steps=T, num_minibatches=4, update_epochs=4,
+                    total_timesteps=3 * T * B, clip_rewards=True)
+    g = torch.Generator().manual_seed(SEED)
+    cpu_ppo = make_recurrent_ppo(Minecraft2d(device="cpu"), cpu_agent, cfg)
+    rs_cpu = cpu_ppo.init_runner(g)
+    rs_cpu.carry = tuple(torch.randn(B, 128, generator=g) * 0.5 for _ in range(2))
+    carry0 = rs_cpu.carry
+    rs_cpu, rollout = cpu_ppo.rollout(rs_cpu)
+    obs, _, _, _, dones, _ = rollout
+    card_carry0 = tuple(c.cuda() for c in carry0)
+    with torch.no_grad():
+        ref = cpu_agent(obs, dones, carry0)
+        out = agent(obs.cuda(), dones.cuda(), card_carry0)
+        # how far the logits move when the towers see blank frames: how much
+        # of the outputs the towers decide
+        blank = agent(torch.zeros_like(obs).cuda(), dones.cuda(), card_carry0)
+    errs, scales = {}, {}
+    for name, o, r in zip(("logits", "value", "h", "c"), (out[0], out[1], *out[2]),
+                          (ref[0], ref[1], *ref[2])):
+        err, scale = (o.cpu() - r).abs().max().item(), r.abs().max().item()
+        errs[name], scales[name] = err, scale
+        check(math.isfinite(err) and err <= PPO_AGENT_TOL_OF_MAX * scale,
+              f"online agent {name} on the card disagrees with the CPU: {err} of {scale}")
+    tower_share = ((out[0] - blank[0]).abs().max() / out[0].abs().max()).item()
+    emit("ppo", check="agent card vs cpu", T=T, B=B, params=n_params,
+         input_scale=PPO_CHECK_AGENT["input_scale"], dones=int(dones.sum()),
+         **{f"max_abs_err_{k}": v for k, v in errs.items()},
+         **{f"max_abs_ref_{k}": v for k, v in scales.items()},
+         logits_moved_by_blank_frames_of_max=tower_share,
+         tol_of_max=PPO_AGENT_TOL_OF_MAX, card=smi, ok=True)
+
+    # 2. one update_from_rollout, card against CPU, the same permutations
+    perms = [torch.randperm(B, generator=g) for _ in range(cfg.update_epochs)]
+    card_ppo = make_recurrent_ppo(Minecraft2d(), agent, cfg)
+    rs_card = card_ppo.init_runner(torch.Generator(device="cuda").manual_seed(SEED))
+    rs_card = dataclasses.replace(rs_card, obs=rs_cpu.obs.cuda(), done=rs_cpu.done.cuda(),
+                                  carry=tuple(c.cuda() for c in rs_cpu.carry))
+    before = [p.detach().clone() for p in cpu_agent.parameters()]
+    rs_card, m_card = card_ppo.update_from_rollout(
+        rs_card, card_carry0, tuple(x.cuda() for x in rollout), perms)
+    rs_cpu, m_cpu = cpu_ppo.update_from_rollout(rs_cpu, carry0, rollout, perms)
+    worst, worst_name, moved = 0.0, "", 0.0
+    for (name, p), q, p0 in zip(agent.named_parameters(), cpu_agent.parameters(), before):
+        err = (p.detach().cpu() - q.detach()).abs().max().item()
+        moved = max(moved, (q.detach() - p0).abs().max().item())
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    metrics = {k: (float(m_card[k]), float(m_cpu[k])) for k in m_cpu}
+    emit("ppo", check="update card vs cpu", opt_steps=int(rs_card.step),
+         worst_param_abs_err=worst, worst_param=worst_name, largest_param_move=moved,
+         atol=PPO_PARAM_ATOL, metrics_card_cpu=metrics, card=smi, ok=worst <= PPO_PARAM_ATOL)
+    check(int(rs_card.step) == int(rs_cpu.step) == 16, "the update took the wrong step count")
+    check(worst <= PPO_PARAM_ATOL, f"update on the card disagrees with the CPU: {worst_name} {worst}")
+    del rs_card, rs_cpu, rollout, obs, agent, cpu_agent
+
+    # 3. three updates through the entry point
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    save_dir = os.path.join(tmp, "ck")
+    args = cli(train.Args, PPO_RUN + ["--total-timesteps", "6144", "--save-interval", "3",
+                                      "--save-dir", save_dir])
+    init = [train.make_agent(args, 4, torch.device("cuda")) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(init[0].parameters(), init[1].parameters())),
+          "the seeded agent init is not deterministic")
+    start = [p.detach().clone() for p in init[0].parameters()]
+    del init
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = train.main(args)
+    run_s = time.perf_counter() - t0
+    for row in first["history"]:
+        emit("ppo", run="scripts.train", **row, card=smi)
+    losses = [v for row in first["history"] for k, v in row.items() if k.startswith("losses/")
+              and k != "losses/explained_variance"]
+    runner = first["runner"]
+    changed = sum(not torch.equal(a, b) for a, b in zip(start, runner.model.parameters()))
+    check(len(first["history"]) == 3 and all(math.isfinite(x) for x in losses),
+          "the PPO run's losses are not all finite")
+    check(changed == len(start), f"only {changed} of {len(start)} parameters changed")
+    ckpt = os.path.join(save_dir, first["run_name"])
+    emit("ppo", run="scripts.train", updates=3, env_steps=first["global_step"], wall_s=run_s,
+         sps_of_run=first["sps"], params_changed=changed, params=len(start),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+
+    # 4. update 4 from the first run's runner in memory, its two halves
+    # timed apart (train_iteration is rollout, then update_from_rollout)
+    resume_args = cli(train.Args, PPO_RESUME_ARGS + ["--load-from", ckpt])
+    cont = make_recurrent_ppo(Minecraft2d(), runner.model, train.ppo_config_from(resume_args))
+    carry0 = runner.carry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner, data = cont.rollout(runner)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    runner, _ = cont.update_from_rollout(runner, carry0, data)
+    torch.cuda.synchronize()
+    emit("ppo", run="update 4 in memory", rollout_s=t1 - t0,
+         update_s=time.perf_counter() - t1, card=smi)
+    del data
+
+    # 5. PPO -> DT: collect with the PPO agent, train the DT, evaluate it
+    dt_args = cli(dt_minecraft.Args, [
+        "--policy-from", ckpt, "--policy-conv-size", "big", "--policy-input-scale", "255",
+        "--collect-envs", "16", "--collect-steps", "256", "--batch-size", "64",
+        "--total-steps", "20", "--eval-envs", "16", "--eval-steps", "64",
+        "--print-interval", "10", "--save-dir", save_dir])
+    reset_counts()
+    out = dt_minecraft.main(dt_args)
+    counts = read_counts()
+    # 6 layers: one forward, dQ and dK/dV launch per layer and train step,
+    # one forward per layer and evaluation step (16 envs step together)
+    layers, steps = dt_args.n_layers, dt_args.total_steps
+    expected = {"flash_fwd": layers * (steps + dt_args.eval_steps),
+                "flash_dq": layers * steps, "flash_dkv": layers * steps}
+    emit("ppo", run="scripts.dt_minecraft --policy-from", **out, launches=counts,
+         expected_launches=expected, card=smi)
+    check(counts == expected, f"pipeline launched {counts}, not {expected}")
+    check(all(math.isfinite(v) for v in out.values()), "non-finite pipeline results")
+    check(out["eval/episodes"] >= 2 * dt_args.eval_envs, "too few evaluation episodes")
+
+    # 6. the resume from the checkpoint, profiled in a child process (a
+    # profiled process launches more slowly afterwards), against update 4 in
+    # memory
+    result = os.path.join(tmp, "resume.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "--ppo-resume",
+                    ckpt, result], check=True, timeout=300, cwd=here)
+    resumed = torch.load(result, weights_only=True)
+    check(resumed["initial_update"] == 4 and resumed["updates"] == [4],
+          "the resumed run did not run update 4 alone")
+    same_stream = torch.equal(runner.generator.get_state(), resumed["generator_state"])
+    resume_err = max((p.detach().cpu() - q).abs().max().item()
+                     for p, q in zip(runner.model.parameters(), resumed["params"]))
+    emit("ppo", run="resume", initial_update=resumed["initial_update"],
+         wall_s_profiled=resumed["wall_s"], kernel_launches=resumed["kernel_launches"],
+         device_busy_ms=resumed["device_busy_ms"], top_kernels=resumed["top_kernels"],
+         same_generator_state=same_stream, max_param_diff_vs_update_in_memory=resume_err,
+         card=smi)
+    check(same_stream, "the resumed run did not continue the saved generator stream")
+    check(resume_err <= PPO_PARAM_ATOL, f"update 4 after a resume differs by {resume_err}")
+    return counts
+
+
+def ppo_resume(ckpt: str, result: str) -> None:
+    """The ppo phase's child process: ``scripts.train --load-from ckpt``
+    under ``torch.profiler``; writes what the parent checks to ``result``."""
+    from torch.autograd import DeviceType
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import train
+
+    args = cli(train.Args, PPO_RESUME_ARGS + ["--load-from", ckpt])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        resumed = train.main(args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    runner = resumed["runner"]
+    torch.save({
+        "initial_update": resumed["initial_update"],
+        "updates": [r["update"] for r in resumed["history"]],
+        "wall_s": resumed["history"][0]["wall_s"],
+        "kernel_launches": len(kernels),
+        "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+        "top_kernels": [[name, ms, calls] for name, (ms, calls) in top],
+        "params": [p.detach().cpu() for p in runner.model.parameters()],
+        "generator_state": runner.generator.get_state(),
+    }, result)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -601,6 +855,9 @@ def main() -> int:
     # float32 reference checks compare full-precision float32 on both sides.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--ppo-resume"]:  # the ppo phase's child process
+        ppo_resume(*sys.argv[2:])
+        return 0
     smi = card()
     t_start = time.perf_counter()
     phase_build()
@@ -609,6 +866,7 @@ def main() -> int:
     phase_grad()
     phase_serve()
     launches, _ = phase_train(smi)
+    phase_ppo(smi)
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}

@@ -1,0 +1,127 @@
+"""Host-side loop of the PPO entry scripts; port of
+``mmtrl_tpu/algos/ppo/runner.py``.
+
+TensorBoard logging with the reference's names (src/train.py:269-279), SPS
+accounting, periodic checkpoints with ``--save-interval``/``--save-dir``/
+``--load-from`` (src/utils.py:23-44,103-108) and ``--profile``.  One
+``train_iteration`` call per update.  Not ported: ``--track`` and
+``--capture-video`` (ROADMAP A.9 ports ``utils/wandb_local`` and
+``utils/video``; both raise), and the JAX runner's run journal
+(``utils/resume.journal_run``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from mmtrl_tpu_torch.algos.ppo.core import PPOConfig, RecurrentPPO, lr_schedule
+from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
+from mmtrl_tpu_torch.core.metrics import MetricsWriter
+
+PROFILE_UPDATES = (3, 7)  # --profile traces these updates, both included
+
+
+def run_training(ppo: RecurrentPPO, cfg: PPOConfig, args, device: torch.device,
+                 run_name: Optional[str] = None) -> Dict[str, Any]:
+    """Drives ``cfg.num_updates`` iterations; returns a summary dict with the
+    final runner and one row per update (wall seconds, SPS, losses, peak
+    device memory)."""
+    for flag in ("track", "capture_video"):
+        if getattr(args, flag, False):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
+    run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
+    writer = MetricsWriter(run_name, args)
+    schedule = lr_schedule(cfg)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    runner = ppo.init_runner(generator)
+    initial_update = 1
+    if getattr(args, "load_from", ""):
+        runner = runner.load_payload(load_run(args.load_from, map_location=device))
+        # The update counter comes from the checkpoint itself: optimizer
+        # steps over optimizer steps per update (the reference restores
+        # initial_update from its pickle, src/utils.py:40-44).
+        opt_step = int(runner.step)
+        initial_update = opt_step // cfg.opt_steps_per_update + 1
+        print(f"resuming at update {initial_update} (opt step {opt_step})")
+
+    cuda = device.type == "cuda"
+    global_step = (initial_update - 1) * cfg.batch_size
+    start = time.time()
+    last_return = 0.0
+    history = []
+    profiler = None
+    for update in range(initial_update, cfg.num_updates + 1):
+        if getattr(args, "profile", False) and update == PROFILE_UPDATES[0]:
+            profiler = _start_profile(run_name, cuda)
+        t0 = time.perf_counter()
+        runner, metrics = ppo.train_iteration(runner)
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        if profiler is not None and update == PROFILE_UPDATES[1]:
+            profiler.stop()
+            profiler = None
+            print(f"profiler trace written to profiles/{run_name}")
+        global_step += cfg.batch_size
+
+        if update % getattr(args, "print_interval", 1) == 0:
+            stats = runner.stats
+            metrics = {k: float(v) for k, v in metrics.items()}
+            mean_return = float(stats.returned_episode_returns.mean())
+            last_return = mean_return
+            writer.scalar("charts/episodic_return", mean_return, global_step)
+            writer.scalar("charts/mean_episodic_return", float(stats.mean_return), global_step)
+            writer.scalar("charts/episodic_length",
+                          float(stats.returned_episode_lengths.mean()), global_step)
+            # the rate of the update's last optimizer step
+            rate = schedule(runner.step - 1) if callable(schedule) else schedule
+            writer.scalar("charts/learning_rate", float(rate), global_step)
+            writer.scalars(metrics, global_step)
+            sps = writer.sps(global_step)
+            row = {"update": update, "global_step": global_step, "wall_s": wall, "sps": sps,
+                   "episodic_return": mean_return, **metrics}
+            if cuda:
+                row["max_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+            history.append(row)
+            print(f"update={update}/{cfg.num_updates} global_step={global_step} "
+                  f"episodic_return={mean_return:.2f} SPS={sps:.0f} wall={wall:.3f}s")
+
+        if getattr(args, "save_interval", 0) and update % args.save_interval == 0:
+            save_run(runner.payload(), run_name, args.save_dir)
+
+    if profiler is not None:
+        profiler.stop()
+    if getattr(args, "save_interval", 0):
+        save_run(runner.payload(), run_name, args.save_dir)
+    writer.close()
+    elapsed = time.time() - start
+    return {
+        "run_name": run_name,
+        "initial_update": initial_update,
+        "global_step": global_step,
+        "sps": (global_step - (initial_update - 1) * cfg.batch_size) / max(elapsed, 1e-9),
+        "episodic_return": last_return,
+        "episode_count": int(runner.stats.episode_count),
+        "history": history,
+        "runner": runner,
+    }
+
+
+def _start_profile(run_name: str, cuda: bool):
+    """A ``torch.profiler`` trace under ``profiles/<run_name>``, the
+    counterpart of the JAX runner's ``jax.profiler`` trace."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(f"profiles/{run_name}"),
+    )
+    profiler.start()
+    return profiler
+

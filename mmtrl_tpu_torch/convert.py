@@ -9,9 +9,11 @@ the ``state_dict`` key with its leaf renamed and, for kernels, transposed:
 - ``bias`` copies over.
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, which
-checks that every name and shape lines up.  ``adam_state_from_flax`` maps an
-optax ``ScaleByAdamState`` the same way, so a JAX train state carries over
-whole.
+checks that every name and shape lines up.  The same walk serves every
+ported model, the recurrent agents too (``agent_params_from_flax``).
+``adam_state_from_flax`` maps an optax ``ScaleByAdamState`` the same way,
+and ``ppo_opt_state_from_flax`` finds that state inside the PPO
+optimizer's chain, so a JAX train state carries over whole.
 """
 
 from __future__ import annotations
@@ -74,3 +76,28 @@ def adam_state_from_flax(count: Any, mu: Mapping[str, Any], nu: Mapping[str, Any
         mu=[moments[0][n] for n in names],
         nu=[moments[1][n] for n in names],
     )
+
+
+# The recurrent agents keep flax's nesting (``core.attn``, ``core.lstm``),
+# so the generic walk maps them, every attention variant included.
+agent_params_from_flax = dt_params_from_flax
+
+
+def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdamState:
+    """``ScaleByAdamState`` of the PPO optimizer's optax state,
+    ``chain(clip_by_global_norm, adam)``: ``(EmptyState, (ScaleByAdamState,
+    ScaleByScheduleState or EmptyState))``.  The schedule's count equals the
+    Adam count, which the port's schedule reads."""
+    found = []
+
+    def walk(node):
+        if hasattr(node, "mu") and hasattr(node, "nu") and hasattr(node, "count"):
+            found.append(node)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(found)}")
+    return adam_state_from_flax(found[0].count, found[0].mu, found[0].nu, names)

@@ -1,0 +1,155 @@
+"""Recurrent actor-critic agents; port of ``MultimodalRecurrentAgent`` and
+``RecurrentAgent`` of ``mmtrl_tpu/models/agents.py``.
+
+One call takes a whole (T, B, ...) window: the rollout passes T = 1, the PPO
+update the full ``num_steps`` sequence.  The towers run on all T x B frames
+at once; the attention / fusion / LSTM recurrence runs as a Python loop over
+T where JAX has ``nn.scan``.  Submodules are named as the flax tree nests
+them (``video_net``, ``audio_net``, ``core.attn``, ``core.lstm``,
+``actor``, ``critic``; ``network`` for the single tower), so
+``convert.agent_params_from_flax`` loads a JAX agent with ``strict=True``.
+
+Kept from the JAX agents:
+
+- ``input_scale = 255``: the reference divides observations by 255 although
+  the env already emits [-1, 1] (src/agents.py:133-134); 1.0 is the sane
+  scale.
+- ``fusion_type='concat'`` with casl or new attention raises, the
+  reference's broken path (src/agents.py:138); the gate always sums.
+- The gate agent concatenates the scalar gate onto the LSTM output: 129-d
+  actor and critic heads (src/minecraft_lstm_attention.py:59-104).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from mmtrl_tpu_torch import DeviceLike, resolve_device
+from mmtrl_tpu_torch.models.attention import CaslAttention, NewAttention, SigmoidGate
+from mmtrl_tpu_torch.models.common import AtariTower, Dense
+from mmtrl_tpu_torch.models.lstm import Carry, LSTMCell
+
+ATTENTION = {"casl": CaslAttention, "new": NewAttention}
+
+
+class _RecurrentCore(nn.Module):
+    """Per-timestep recurrence: (attention ->) fusion -> masked LSTM."""
+
+    def __init__(self, attn_type: Optional[str], fusion_type: str, features: int,
+                 lstm_features: int, device: DeviceLike = None):
+        super().__init__()
+        if fusion_type not in ("sum", "concat"):
+            raise NotImplementedError(fusion_type)
+        self.attn_type, self.fusion_type = attn_type, fusion_type
+        if attn_type in ATTENTION:
+            self.attn = ATTENTION[attn_type](features, features, lstm_features, device=device)
+        elif attn_type == "gate":
+            self.attn = SigmoidGate(features, features, device=device)
+        elif attn_type is not None:
+            raise ValueError(f"unknown attention type {attn_type!r}")
+        self.sums = fusion_type == "sum" or attn_type == "gate"
+        self.lstm = LSTMCell(features if self.sums else 2 * features, lstm_features,
+                             device=device)
+
+    def forward(self, carry: Carry, video: torch.Tensor, audio: torch.Tensor,
+                done: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
+        gate = None
+        if self.attn_type is not None:
+            video, audio, weights = self.attn(video, audio, carry[0])
+            if self.attn_type == "gate":
+                gate = weights
+        fused = video + audio if self.sums else torch.cat([video, audio], dim=-1)
+        carry, hidden = self.lstm(carry, fused, done)
+        if gate is not None:
+            hidden = torch.cat([hidden, gate], dim=-1)
+        return carry, hidden
+
+
+def _scan(core: nn.Module, carry: Carry, inputs) -> Tuple[Carry, torch.Tensor]:
+    """``core`` over dim 0 of every input, threading the carry."""
+    hidden = []
+    for t in range(inputs[0].shape[0]):
+        carry, h = core(carry, *(x[t] for x in inputs))
+        hidden.append(h)
+    return carry, torch.stack(hidden)
+
+
+class _Heads(nn.Module):
+    def _heads(self, hidden: int, num_actions: int, device: torch.device) -> None:
+        self.actor = Dense(hidden, num_actions, scale=0.01, device=device)
+        self.critic = Dense(hidden, 1, scale=1.0, device=device)
+
+    def initial_carry(self, batch_size: int, device: DeviceLike = None) -> Carry:
+        if device is None:
+            device = self.actor.weight.device
+        return LSTMCell.initial_carry(batch_size, self.lstm_features, device)
+
+
+class MultimodalRecurrentAgent(_Heads):
+    """Two CNN towers (video on channel 0, audio on channels 1:) +
+    crossmodal attention + fusion + done-masked LSTM + actor/critic heads:
+    the reference's MinecraftAgent (src/agents.py:93-171) and its
+    sigmoid-gate variant."""
+
+    def __init__(self, num_actions: int, conv_type: str = "big",
+                 attn_type: Optional[str] = None, fusion_type: str = "sum",
+                 lstm_features: int = 128, input_scale: float = 255.0,
+                 audio_channels: int = 1, device: DeviceLike = None):
+        super().__init__()
+        if attn_type in ("casl", "new") and fusion_type == "concat":
+            raise ValueError(
+                "concat fusion with attention is the reference's broken path "
+                "(src/agents.py:138); use fusion_type='sum'"
+            )
+        device = resolve_device(device)
+        self.lstm_features, self.input_scale = lstm_features, input_scale
+        self.video_net = AtariTower(conv_type, 1, device=device)
+        self.audio_net = AtariTower(conv_type, audio_channels, device=device)
+        features = self.video_net.feature_size
+        self.core = _RecurrentCore(attn_type, fusion_type, features, lstm_features, device)
+        self._heads(lstm_features + (attn_type == "gate"), num_actions, device)
+
+    def forward(self, obs: torch.Tensor, done: torch.Tensor,
+                carry: Carry) -> Tuple[torch.Tensor, torch.Tensor, Carry]:
+        """obs (T, B, C, 84, 84), done (T, B), carry ((B, H), (B, H)) ->
+        logits (T, B, A), value (T, B), carry."""
+        T, B = obs.shape[:2]
+        flat = obs.reshape((T * B,) + obs.shape[2:]) / self.input_scale
+        video = self.video_net(flat[:, 0:1]).reshape(T, B, -1)
+        audio = self.audio_net(flat[:, 1:]).reshape(T, B, -1)
+        carry, hidden = _scan(self.core, carry, (video, audio, done))
+        return self.actor(hidden), self.critic(hidden)[..., 0], carry
+
+
+class _PlainCore(nn.Module):
+    def __init__(self, features: int, lstm_features: int, device: DeviceLike = None):
+        super().__init__()
+        self.lstm = LSTMCell(features, lstm_features, device=device)
+
+    def forward(self, carry: Carry, feat: torch.Tensor, done: torch.Tensor):
+        return self.lstm(carry, feat, done)
+
+
+class RecurrentAgent(_Heads):
+    """Single CNN tower + LSTM + heads: the reference's GymAgent/OldAgent
+    (src/agents.py:174-275) and cleanrl/ppo_atari_lstm.py's Agent."""
+
+    def __init__(self, num_actions: int, conv_type: str = "big", lstm_features: int = 128,
+                 input_scale: float = 255.0, in_channels: int = 1, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.lstm_features, self.input_scale = lstm_features, input_scale
+        self.network = AtariTower(conv_type, in_channels, device=device)
+        self.core = _PlainCore(self.network.feature_size, lstm_features, device)
+        self._heads(lstm_features, num_actions, device)
+
+    def forward(self, obs: torch.Tensor, done: torch.Tensor,
+                carry: Carry) -> Tuple[torch.Tensor, torch.Tensor, Carry]:
+        T, B = obs.shape[:2]
+        flat = obs.reshape((T * B,) + obs.shape[2:]) / self.input_scale
+        feat = self.network(flat).reshape(T, B, -1)
+        carry, hidden = _scan(self.core, carry, (feat, done))
+        return self.actor(hidden), self.critic(hidden)[..., 0], carry

@@ -194,3 +194,60 @@ def test_tiny_train_step_on_the_card_matches_the_cpu():
         # float32, sums in other orders; Adam can move a parameter whose
         # gradient is near zero by up to the learning rate (1e-3)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_online_agent_on_the_card_matches_the_cpu():
+    _need_gpu()
+    from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+
+    torch.manual_seed(0)
+    kw = dict(num_actions=4, conv_type="small", attn_type="casl", input_scale=1.0)
+    card = MultimodalRecurrentAgent(**kw, device="cuda")
+    cpu = MultimodalRecurrentAgent(**kw, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    obs = torch.rand(5, 3, 2, 84, 84, generator=g) * 2 - 1
+    done = torch.zeros(5, 3, dtype=torch.bool)
+    done[2, 1] = True
+    carry = tuple(torch.randn(3, 128, generator=g) * 0.5 for _ in range(2))
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            out = card(obs.cuda(), done.cuda(), tuple(c.cuda() for c in carry))
+            ref = cpu(obs, done, carry)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    # float32 on both sides: convs and products summed in other orders,
+    # carried through 5 LSTM steps
+    for o, r in zip((out[0], out[1], *out[2]), (ref[0], ref[1], *ref[2])):
+        assert (o.cpu() - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1e-6)
+
+
+@pytest.mark.cuda
+def test_tiny_ppo_run_on_the_card(tmp_path, monkeypatch):
+    _need_gpu()
+    import math
+
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import train
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MMTRL_RUN_ROOT", str(tmp_path / "runs"))
+    out = train.main(cli(train.Args, [
+        "--conv-size", "small", "--attn-type", "casl", "--num-envs", "4", "--num-steps", "8",
+        "--num-minibatches", "2", "--update-epochs", "2", "--total-timesteps", "64",
+        "--save-interval", "2"]))
+    assert out["runner"].obs.device.type == "cuda" and len(out["history"]) == 2
+    assert all(math.isfinite(v) for row in out["history"] for k, v in row.items()
+               if k.startswith("losses/") and k != "losses/explained_variance")
+    ckpt = str(tmp_path / "saved_agents" / out["run_name"])
+    assert int(load_run(ckpt)["opt_state"]["count"]) == 8
+    # the payload loads onto the card, the generator state included
+    resumed = train.main(cli(train.Args, [
+        "--conv-size", "small", "--attn-type", "casl", "--num-envs", "4", "--num-steps", "8",
+        "--num-minibatches", "2", "--update-epochs", "2", "--total-timesteps", "96",
+        "--load-from", ckpt]))
+    assert resumed["initial_update"] == 3 and len(resumed["history"]) == 1

@@ -1,6 +1,7 @@
-"""The port and its scripts stand alone: no jax, flax, cv2, PIL or
-mmtrl_tpu import anywhere in them, and chip_smoke.py fails without CUDA or
-without the package."""
+"""The port and its scripts stand alone: no jax, flax, optax, orbax, cv2,
+PIL, tensorboard or mmtrl_tpu import anywhere in them (the card machine
+has none of them), and chip_smoke.py fails without CUDA or without the
+package."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2", "PIL", "mmtrl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "tensorboard", "mmtrl_tpu"}
 SCRIPTS = [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py"]
 SOURCES = sorted((REPO / "mmtrl_tpu_torch").rglob("*.py")) + SCRIPTS
 

@@ -1,0 +1,219 @@
+"""The port's entry scripts on the CPU (``--cuda False``, tiny budgets):
+the three PPO twins end to end, their flags against the JAX scripts',
+checkpoints (crash-safe overwrite, ``--load-from`` resume continuing the
+update counter and the generator stream), the DT twin collecting with a
+port PPO checkpoint, and the event files read back by TensorBoard."""
+
+import dataclasses
+import importlib.util
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mmtrl_tpu_torch.core import checkpoint
+from mmtrl_tpu_torch.core.config import cli
+from mmtrl_tpu_torch.core.metrics import MetricsWriter
+from mmtrl_tpu_torch.envs import make
+from mmtrl_tpu_torch.scripts import dt_minecraft, minecraft_lstm, minecraft_lstm_attention, train
+
+REPO = Path(__file__).resolve().parent.parent
+# 2 envs x 4 steps a rollout, one minibatch, one epoch, small towers
+TINY_PPO = ["--cuda", "False", "--conv-size", "small", "--num-envs", "2", "--num-steps", "4",
+            "--num-minibatches", "1", "--update-epochs", "1"]
+LOSSES = ("losses/policy_loss", "losses/value_loss", "losses/entropy", "losses/approx_kl",
+          "losses/clipfrac", "losses/explained_variance")
+
+
+@pytest.fixture(autouse=True)
+def in_tmp(tmp_path, monkeypatch):
+    """Every run writes under its own temp directory; torch runs one thread
+    (the suite runs in several worker processes at once)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("MMTRL_RUN_ROOT", str(tmp_path / "runs"))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield tmp_path
+    torch.set_num_threads(n)
+
+
+def _events(run_dir):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(run_dir))
+    acc.Reload()
+    return acc
+
+
+@pytest.mark.parametrize("script,extra", [
+    (train, ["--attn-type", "casl"]),
+    (minecraft_lstm_attention, []),
+    (minecraft_lstm, ["--agent", "old"]),
+    (minecraft_lstm, ["--agent", "minecraft", "--attn-type", "new"]),
+])
+def test_ppo_twin_runs_end_to_end(script, extra, in_tmp):
+    out = script.main(cli(script.Args, TINY_PPO + extra + ["--total-timesteps", "16"]))
+    assert out["global_step"] == 16 and [r["update"] for r in out["history"]] == [1, 2]
+    for row in out["history"]:
+        assert all(math.isfinite(row[k]) for k in LOSSES if k != "losses/explained_variance")
+    acc = _events(in_tmp / "runs" / out["run_name"])
+    tags = set(acc.Tags()["scalars"])
+    assert {"charts/episodic_return", "charts/learning_rate", "charts/SPS",
+            "charts/SPS_cumulative", *LOSSES} <= tags
+    assert [e.step for e in acc.Scalars("losses/value_loss")] == [8, 16]
+    assert acc.Scalars("losses/value_loss")[-1].value == pytest.approx(
+        out["history"][-1]["losses/value_loss"], rel=1e-6)
+
+
+def test_cuda_default_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(cli(train.Args, ["--total-timesteps", "8"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dt_minecraft.main(cli(dt_minecraft.Args, ["--total-steps", "1"]))
+
+
+def _jax_script(name):
+    """A JAX script module, imported as its directory's siblings import it."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        spec = importlib.util.spec_from_file_location(f"_jax_{name}", REPO / "scripts" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("train", ["--attn-type", "casl", "--cuda", "False", "--track", "--num-envs", "8",
+               "--target-kl", "0.02", "--anneal-lr", "false", "--seed", "3",
+               "--learning-rate", "1e-3", "--save-dir", "x"]),
+    ("minecraft_lstm", ["--agent", "old", "--clip-rewards", "0", "--conv-size", "small"]),
+    ("dt_minecraft", ["--policy-from", "ck", "--d-model", "64", "--eval-greedy", "no",
+                      "--remat", "--rtg-clip", "5"]),
+])
+def test_cli_matches_the_jax_cli(name, argv, monkeypatch):
+    monkeypatch.setenv("MMTRL_NO_COMPILE_CACHE", "1")  # the JAX cli's own cache
+    jax_script = _jax_script(name)
+    from mmtrl_tpu.core.config import cli as jax_cli
+
+    port_args = cli(importlib.import_module(f"mmtrl_tpu_torch.scripts.{name}").Args, argv)
+    jax_args = jax_cli(jax_script.Args, argv)
+    port, ref = dataclasses.asdict(port_args), dataclasses.asdict(jax_args)
+    # --platform chooses a JAX backend; --cuda and --torch-deterministic are
+    # the port's device flags (the JAX dt_minecraft has neither)
+    assert set(ref) - set(port) <= {"platform"}
+    assert set(port) - set(ref) <= {"cuda", "torch_deterministic"}
+    assert {k: port[k] for k in ref if k in port} == {k: v for k, v in ref.items() if k in port}
+
+
+def test_save_run_overwrites_crash_safely(in_tmp, monkeypatch):
+    path = checkpoint.save_run({"x": torch.ones(2), "n": 1}, "run", "ck")
+    assert checkpoint.load_run(path)["n"] == 1
+    # leftovers of a killed save do not block the next one
+    os.makedirs(in_tmp / "ck" / "_tmp_run")
+    os.makedirs(in_tmp / "ck" / "_old_run")
+    checkpoint.save_run({"x": torch.zeros(2), "n": 2}, "run", "ck")
+    assert sorted(os.listdir(in_tmp / "ck")) == ["run"]
+    # a save killed mid-write leaves the previous checkpoint whole
+    monkeypatch.setattr(checkpoint.torch, "save", lambda *a, **k: (_ for _ in ()).throw(OSError("killed")))
+    with pytest.raises(OSError):
+        checkpoint.save_run({"x": torch.full((2,), 7.0), "n": 3}, "run", "ck")
+    payload = torch.load(Path(path) / checkpoint.FILE, weights_only=True)
+    assert payload["n"] == 2 and torch.equal(payload["x"], torch.zeros(2))
+
+
+def test_load_from_resumes_the_update_counter_and_the_generator_stream(in_tmp):
+    # a constant learning rate: an annealed one depends on --total-timesteps,
+    # which the first run cuts short
+    argv = TINY_PPO + ["--attn-type", "casl", "--num-minibatches", "2", "--update-epochs", "2",
+                       "--save-dir", "ck", "--anneal-lr", "False"]
+    whole = train.main(cli(train.Args, argv + ["--total-timesteps", "24"]))
+    first = train.main(cli(train.Args, argv + ["--total-timesteps", "16", "--save-interval", "2"]))
+    ckpt = str(in_tmp / "ck" / first["run_name"])
+    payload = torch.load(Path(ckpt) / checkpoint.FILE, weights_only=True)
+    assert int(payload["opt_state"]["count"]) == 8  # 2 updates x 2 epochs x 2 minibatches
+    resumed = train.main(cli(train.Args, argv + ["--total-timesteps", "24",
+                                                 "--load-from", ckpt]))
+    assert resumed["initial_update"] == 3 and [r["update"] for r in resumed["history"]] == [3]
+    assert resumed["global_step"] == 24
+    # update 3 after a resume is update 3 of the uninterrupted run
+    a, b = whole["runner"], resumed["runner"]
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+    assert resumed["history"][0]["losses/value_loss"] == whole["history"][2]["losses/value_loss"]
+
+
+def test_dt_twin_collects_with_a_ppo_checkpoint(in_tmp):
+    ppo = train.main(cli(train.Args, TINY_PPO + ["--attn-type", "casl", "--total-timesteps", "8",
+                                                 "--save-interval", "1", "--save-dir", "ck"]))
+    out = dt_minecraft.main(cli(dt_minecraft.Args, [
+        "--cuda", "False", "--policy-from", str(in_tmp / "ck" / ppo["run_name"]),
+        "--policy-conv-size", "small", "--policy-input-scale", "255",
+        "--collect-envs", "2", "--collect-steps", "40", "--d-model", "32", "--n-layers", "2",
+        "--n-heads", "2", "--context-len", "6", "--batch-size", "4", "--total-steps", "4",
+        "--print-interval", "2", "--eval-envs", "2", "--eval-steps", "8", "--save-interval", "4",
+    ]))
+    assert out["episodes_collected"] >= 2  # every episode ends within 30 steps
+    assert all(math.isfinite(out[k]) for k in ("eval/episodic_return", "collect_s", "train_s"))
+    saved = [d for d in os.listdir(in_tmp / "saved_agents") if "dt_minecraft" in d]
+    assert len(saved) == 1
+    payload = checkpoint.load_run(str(in_tmp / "saved_agents" / saved[0]))
+    assert int(payload["opt_state"]["count"]) == 4
+    # a checkpoint of another width does not load: strict state dicts
+    with pytest.raises(RuntimeError):
+        dt_minecraft.main(cli(dt_minecraft.Args, [
+            "--cuda", "False", "--policy-from", str(in_tmp / "ck" / ppo["run_name"]),
+            "--policy-conv-size", "big", "--total-steps", "1", "--collect-steps", "1"]))
+
+
+def test_metrics_writer_events_read_back(in_tmp):
+    @dataclasses.dataclass
+    class Config:
+        lr: float = 2.5e-4
+        env_id: str = "minecraft"
+
+    writer = MetricsWriter("run", Config(), root="ignored")  # MMTRL_RUN_ROOT wins
+    writer.scalar("charts/episodic_return", -3.25, 8)
+    writer.scalars({"losses/value_loss": 0.5, "losses/entropy": 1.375}, 8)
+    sps = writer.sps(16)
+    writer.close()
+    acc = _events(in_tmp / "runs" / "run")
+    assert set(acc.Tags()["scalars"]) == {"charts/episodic_return", "losses/value_loss",
+                                         "losses/entropy", "charts/SPS", "charts/SPS_cumulative"}
+    assert [(e.step, e.value) for e in acc.Scalars("charts/episodic_return")] == [(8, -3.25)]
+    assert acc.Scalars("losses/entropy")[0].value == 1.375
+    assert acc.Scalars("charts/SPS")[0].value == pytest.approx(sps, rel=1e-6)
+    text = acc.Tensors("hyperparameters/text_summary")[0].tensor_proto.string_val[0].decode()
+    assert text == "|param|value|\n|-|-|\n|lr|0.00025|\n|env_id|minecraft|"
+    assert acc.SummaryMetadata("hyperparameters/text_summary").plugin_data.plugin_name == "text"
+
+
+def test_registry_names_what_it_has():
+    assert make("Minecraft2d", device="cpu").num_actions == 4
+    with pytest.raises(KeyError, match="available: \\['minecraft', 'minecraft2d'\\]"):
+        make("CartPole-v1", device="cpu")
+
+
+def test_python_m_entry_imports_no_jax(in_tmp):
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['train'] + sys.argv[1:]\n"
+        "runpy.run_module('mmtrl_tpu_torch.scripts.train', run_name='__main__')\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'tensorboard', 'mmtrl_tpu')))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code, *TINY_PPO, "--total-timesteps", "8", "--save-interval", "1"],
+        cwd=in_tmp, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+    assert "saved run to" in r.stdout and (in_tmp / "saved_agents").is_dir()
