@@ -45,7 +45,19 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 checks take input scale 1 (the run keeps the reference's
                 255).  cuDNN's deterministic flag and the run root are
                 restored afterwards.
-8. timing    -- each kernel, its plain version and the PyTorch call that
+8. ppo_family -- the rest of online PPO at the entry points' widths: each
+                new agent (CNN, google, RND with its target and predictor,
+                PPG) and one update of ``make_ppo`` and ``make_rnd_ppo``
+                (from the CPU's statistics; the statistics checked apart)
+                and a 4-step ``make_ppg`` cycle on the card against the
+                CPU, a 32-step cycle reported beside the CPU's own spread;
+                ``scripts.{minecraft_cnn,minecraft_lstm_google,ppo_rnd}``
+                (3 updates) and ``scripts.ppg --n-iteration 4`` (one cycle)
+                through ``main``; ``scripts.evaluate`` on the CNN and casl
+                checkpoints; and in a child process an RND ``--load-from``
+                resume equal to update 4 in memory bit for bit, then one
+                profiled update of each path.
+9. timing    -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training and long-context shapes, beside the bound
@@ -64,7 +76,9 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Any, Optional
 
 import torch
 
@@ -586,30 +600,42 @@ PPO_AGENT_TOL_OF_MAX = 1e-5
 # gradient is bounded by eps, so the parameters agree far inside one step's
 # size.  Held to 1e-5 absolute (4% of one step, 0.25% of the 16 steps).
 PPO_PARAM_ATOL = 1e-5
+# The same in float64 on both sides (the PPO family's feedforward and RND
+# updates): roundings of 1e-16 switch no ReLU, and Adam's eps of 1e-5 turns
+# them into steps some 1e-13 apart; 1e-9 is four powers of ten of room and
+# still far below a float32 rounding of the parameters.
+PPO_PARAM_ATOL_FLOAT64 = 1e-9
 PPO_RESUME_ARGS = PPO_RUN + ["--total-timesteps", "8192"]
 
 
-def phase_ppo(smi: str):
-    """The online PPO path at full width: the agent and one update on the
-    card against the CPU, three updates through ``scripts.train``, update 4
-    in memory, PPO -> DT through ``scripts.dt_minecraft``, then a profiled
-    ``--load-from`` resume in a child process.  Returns the pipeline's
-    kernel launches.  The entry points set cuDNN's deterministic flag and the
-    run root for the rest of the process; both are restored afterwards, so
-    the timing phase runs as it would without this one."""
+def restoring_flags(checks, *args):
+    """``checks(*args)``, with cuDNN's deterministic flag and the run root
+    restored afterwards: the entry points set both for the rest of the
+    process, and the later phases run as they would without this one."""
     import os
-    import tempfile
 
     deterministic, run_root = torch.backends.cudnn.deterministic, os.environ.get("MMTRL_RUN_ROOT")
     try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_") as tmp:
-            return ppo_checks(smi, tmp)
+        return checks(*args)
     finally:
         torch.backends.cudnn.deterministic = deterministic
         if run_root is None:
             os.environ.pop("MMTRL_RUN_ROOT", None)
         else:
             os.environ["MMTRL_RUN_ROOT"] = run_root
+
+
+def phase_ppo(smi: str, tmp: str = ""):
+    """The online PPO path at full width: the agent and one update on the
+    card against the CPU, three updates through ``scripts.train``, update 4
+    in memory, PPO -> DT through ``scripts.dt_minecraft``, then a profiled
+    ``--load-from`` resume in a child process.  Works in ``tmp`` (a fresh
+    temporary directory when empty); returns the pipeline's kernel launches
+    and the PPO run's checkpoint there."""
+    if tmp:
+        return restoring_flags(ppo_checks, smi, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_") as tmp:
+        return restoring_flags(ppo_checks, smi, tmp)
 
 
 def ppo_checks(smi: str, tmp: str):
@@ -768,38 +794,593 @@ def ppo_checks(smi: str, tmp: str):
          card=smi)
     check(same_stream, "the resumed run did not continue the saved generator stream")
     check(resume_err <= PPO_PARAM_ATOL, f"update 4 after a resume differs by {resume_err}")
-    return counts
+    return counts, ckpt
 
 
 def ppo_resume(ckpt: str, result: str) -> None:
     """The ppo phase's child process: ``scripts.train --load-from ckpt``
     under ``torch.profiler``; writes what the parent checks to ``result``."""
-    from torch.autograd import DeviceType
-
     from mmtrl_tpu_torch.core.config import cli
     from mmtrl_tpu_torch.scripts import train
 
     args = cli(train.Args, PPO_RESUME_ARGS + ["--load-from", ckpt])
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        resumed = train.main(args)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in kernels:
-        ms, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    resumed, _, launches, busy, top = device_profile(lambda: train.main(args))
     runner = resumed["runner"]
     torch.save({
         "initial_update": resumed["initial_update"],
         "updates": [r["update"] for r in resumed["history"]],
         "wall_s": resumed["history"][0]["wall_s"],
-        "kernel_launches": len(kernels),
-        "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-        "top_kernels": [[name, ms, calls] for name, (ms, calls) in top],
+        "kernel_launches": launches,
+        "device_busy_ms": busy,
+        "top_kernels": top,
         "params": [p.detach().cpu() for p in runner.model.parameters()],
         "generator_state": runner.generator.get_state(),
     }, result)
+
+
+def device_profile(fn):
+    """``fn()`` under ``torch.profiler`` (CUDA activity), synchronized:
+    (its result, wall s, device operations, device busy ms, the top 8
+    kernels by device time as [name, ms, calls]).  The profiler's raw
+    events are read directly: building its per-event Python objects
+    (``prof.events()``) takes about 0.1 ms an event, tens of seconds for
+    an update of 100,000 operations."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, calls = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    busy = sum(e.duration_ns() for e in kernels) / 1e6
+    return out, wall, len(kernels), busy, [[name, ms, calls] for name, (ms, calls) in top]
+
+
+# The rest of online PPO on Minecraft2d at the entry points' own widths:
+# feedforward CNN PPO (big tower), the google LSTM agent (two big towers
+# projected to 256), PPO + RND (big agent tower, small target and
+# predictor towers) and PPG (IMPALA trunk).  The checks take input scale 1,
+# as the ppo phase's do; the runs keep each script's default.
+FAMILY_RUNS = {  # script: argv of a run of three updates (PPG: one cycle)
+    "minecraft_cnn": ["--total-timesteps", "1536", "--save-interval", "3"],
+    "minecraft_lstm_google": ["--total-timesteps", "384", "--save-interval", "3"],
+    "ppo_rnd": ["--total-timesteps", "3072", "--save-interval", "3"],
+    "ppg": ["--n-iteration", "4", "--total-timesteps", "2048", "--save-interval", "1"],
+}
+RND_RESUME_ARGS = ["--total-timesteps", "4096"]  # update 4 of the ppo_rnd run
+EVAL_CHECK_CALLS = 8  # model calls of each evaluation held against the CPU
+# One update profiled after one warm update, each from its run's checkpoint
+# (after update 3; the PPG run's after cycle 1): updates 4 and 5 of 5
+# (cycles 2 and 3 of 3).
+FAMILY_PROFILES = {
+    "minecraft_cnn": ["--total-timesteps", "2560"],
+    "minecraft_lstm_google": ["--total-timesteps", "640"],
+    "ppo_rnd": ["--total-timesteps", "5120"],
+    "ppg": ["--n-iteration", "4", "--total-timesteps", "6144"],
+}
+
+
+def minecraft_observations(steps: int, envs: int, seed: int) -> torch.Tensor:
+    """(steps, envs, 2, 84, 84) CPU observations of Minecraft2d under
+    random actions."""
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+
+    env, g = Minecraft2d(device="cpu"), torch.Generator().manual_seed(seed)
+    o, state = env.reset(envs, g)
+    frames = []
+    for _ in range(steps):
+        frames.append(o)
+        o, state, _, _, _ = env.step(state, torch.randint(0, 4, (envs,), generator=g), g)
+    return torch.stack(frames)
+
+
+def card_and_cpu(build):
+    """The module ``build(device)`` on the card, from the seed, and its
+    copy on the CPU."""
+    torch.manual_seed(SEED)
+    card_module = build("cuda")
+    cpu_module = build("cpu")
+    cpu_module.load_state_dict(card_module.state_dict())
+    return card_module, cpu_module
+
+
+def float64(x: torch.Tensor) -> torch.Tensor:
+    return x.double() if x.is_floating_point() else x
+
+
+def param_err(modules, refs) -> tuple[float, str]:
+    """The largest elementwise difference between the parameters of two
+    lists of modules, and the parameter's name."""
+    worst, worst_name = 0.0, ""
+    for module, ref in zip(modules, refs, strict=True):
+        for (name, p), q in zip(module.named_parameters(), ref.parameters(), strict=True):
+            err = (p.detach().cpu().double() - q.detach().double()).abs().max().item()
+            if not math.isfinite(err) or err > worst:
+                worst, worst_name = err, name
+    return worst, worst_name
+
+
+def compare_params(label: str, smi: str, steps: int, card, cpu, before, metrics_card,
+                   metrics_cpu, exact=None, **extra):
+    """Whether the parameters of the ``card`` modules after an update agree
+    with those of the same update of the ``cpu`` modules, from the same data
+    and draws, within ``PPO_PARAM_ATOL`` (the caller fails the run if not).
+    ``before`` holds the CPU modules' parameters before the update.  With
+    ``exact`` (float64 copies of the card and CPU modules after the same
+    update) the float64 pair is held to ``PPO_PARAM_ATOL_FLOAT64`` instead,
+    and the float32 pair's distances, from each other and from float64, are
+    reported."""
+    moved = max((q.detach() - p0).abs().max().item()
+                for module, params in zip(cpu, before) for q, p0 in zip(module.parameters(), params))
+    worst, worst_name = param_err(card, cpu)
+    metrics = {k: (float(metrics_card[k]), float(metrics_cpu[k])) for k in metrics_cpu}
+    atol = PPO_PARAM_ATOL
+    if exact is not None:
+        card64, cpu64 = exact
+        extra.update(float32_card_vs_cpu=worst, float32_card_vs_cpu_at=worst_name,
+                     float32_card_vs_float64_cpu=param_err(card, cpu64)[0],
+                     float32_cpu_vs_float64_cpu=param_err(cpu, cpu64)[0])
+        (worst, worst_name), atol = param_err(card64, cpu64), PPO_PARAM_ATOL_FLOAT64
+    ok = worst <= atol
+    emit("ppo_family", check=f"{label} card vs cpu" + (" in float64" if exact else ""),
+         opt_steps=steps, worst_param_abs_err=worst, worst_param=worst_name,
+         largest_param_move=moved, atol=atol, float32_metrics_card_cpu=metrics, **extra,
+         card=smi, ok=ok)
+    check(moved > 0, f"{label} moved no parameter")
+    return ok
+
+
+def phase_ppo_family(smi: str, ppo_ckpt: str = ""):
+    """The feedforward, google, RND and PPG paths: each agent and one update
+    (a PPG cycle) on the card against the CPU, each entry point through its
+    ``main``, the evaluate twin on the CNN run's checkpoint and on
+    ``ppo_ckpt`` (the ppo phase's casl run), and in a child process an RND
+    ``--load-from`` resume, equal bit for bit to the run continued in memory,
+    then one profiled update of each path (for PPG a cycle)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as tmp:
+        restoring_flags(family_checks, smi, tmp, ppo_ckpt)
+
+
+def family_agent_checks(smi: str):
+    from mmtrl_tpu_torch.algos.ppo.ppg import PPGAgent
+    from mmtrl_tpu_torch.algos.ppo.rnd import RNDAgent, RNDNetwork
+    from mmtrl_tpu_torch.models.agents import CNNAgent
+    from mmtrl_tpu_torch.scripts.minecraft_lstm_google import GoogleAgent
+
+    shape = (2, 84, 84)
+    seq = minecraft_observations(4, 16, SEED)  # (T, N, 2, 84, 84)
+    flat = seq.reshape((-1,) + shape)  # 64 frames for the feedforward agents
+    done = torch.zeros(4, 4, dtype=torch.bool)
+    done[2, 1] = True
+    g = torch.Generator().manual_seed(SEED)
+    carry = tuple(torch.randn(4, 128, generator=g) * 0.5 for _ in range(2))
+    agents = {  # name: (build, CPU inputs, output names)
+        "CNNAgent": (lambda d: CNNAgent(4, "big", input_scale=1.0, device=d), (flat,),
+                     ("logits", "value")),
+        "GoogleAgent": (lambda d: GoogleAgent(4, 0.5, input_scale=1.0, device=d),
+                        (seq[:, :4], done, carry), ("logits", "value", "h", "c")),
+        "RNDAgent": (lambda d: RNDAgent(4, shape, device=d), (flat,),
+                     ("logits", "v_ext", "v_int")),
+        "RNDNetwork target": (lambda d: RNDNetwork(shape, device=d), (flat,), ("embedding",)),
+        "RNDNetwork predictor": (lambda d: RNDNetwork(shape, predictor=True, device=d), (flat,),
+                                 ("embedding",)),
+        "PPGAgent": (lambda d: PPGAgent(4, shape, device=d), (flat,),
+                     ("logits", "value", "aux_value")),
+    }
+    for name, (build, inputs, names) in agents.items():
+        card_module, cpu_module = card_and_cpu(build)
+        on_card = [tuple(c.cuda() for c in x) if isinstance(x, tuple) else x.cuda()
+                   for x in inputs]
+        with torch.no_grad():
+            out, ref = card_module(*on_card), cpu_module(*inputs)
+        outs = lambda o: [y for x in (o if isinstance(o, tuple) else (o,))  # noqa: E731
+                          for y in (x if isinstance(x, tuple) else (x,))]
+        errs, scales = {}, {}
+        for what, o, r in zip(names, outs(out), outs(ref), strict=True):
+            errs[what], scales[what] = (o.cpu() - r).abs().max().item(), r.abs().max().item()
+            check(math.isfinite(errs[what])
+                  and errs[what] <= PPO_AGENT_TOL_OF_MAX * scales[what],
+                  f"{name} {what} on the card disagrees with the CPU: "
+                  f"{errs[what]} of {scales[what]}")
+        emit("ppo_family", check=f"{name} card vs cpu",
+             params=sum(p.numel() for p in card_module.parameters()),
+             inputs=[list(x.shape) for x in inputs if torch.is_tensor(x)],
+             **{f"max_abs_err_{k}": v for k, v in errs.items()},
+             **{f"max_abs_ref_{k}": v for k, v in scales.items()},
+             tol_of_max=PPO_AGENT_TOL_OF_MAX, card=smi, ok=True)
+
+
+@dataclasses.dataclass
+class UpdateCase:
+    """An update check's inputs: its config, its modules on the card and
+    their CPU copies (the RND case: agent, target, predictor), the CPU
+    runner after the rollout, the rollout, and the draws in their place."""
+
+    cfg: Any
+    card: Any
+    cpu: Any
+    runner: Any
+    data: tuple
+    perms: list
+    masks: Optional[list] = None
+
+
+def ppo_update_case() -> tuple[UpdateCase, torch.Generator]:
+    """The feedforward PPO check: the minecraft_cnn agent, its 4 envs, 16
+    steps; and the generator that draws the later checks' rollouts."""
+    from mmtrl_tpu_torch.algos.ppo import PPOConfig, make_ppo
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+    from mmtrl_tpu_torch.models.agents import CNNAgent
+
+    cfg = PPOConfig(num_envs=4, num_steps=16, num_minibatches=4, update_epochs=4,
+                    total_timesteps=3 * 64, clip_rewards=True)
+    card_model, cpu_model = card_and_cpu(lambda d: CNNAgent(4, "big", input_scale=1.0, device=d))
+    g = torch.Generator().manual_seed(SEED)
+    cpu_ppo = make_ppo(Minecraft2d(device="cpu"), cpu_model, cfg)
+    rs_cpu, data = cpu_ppo.rollout(cpu_ppo.init_runner(g))
+    perms = [torch.randperm(cfg.batch_size, generator=g) for _ in range(cfg.update_epochs)]
+    return UpdateCase(cfg, card_model, cpu_model, rs_cpu, data, perms), g
+
+
+def rnd_update_case(g: torch.Generator) -> UpdateCase:
+    """The RND check, drawn from ``g`` after ``ppo_update_case``: the
+    ppo_rnd agent, target and predictor, its 8 envs, 16 steps."""
+    from mmtrl_tpu_torch.algos.ppo.rnd import RNDAgent, RNDConfig, RNDNetwork, make_rnd_ppo
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+
+    shape = (2, 84, 84)
+    cfg = RNDConfig(num_envs=8, num_steps=16, num_minibatches=4, update_epochs=4,
+                    total_timesteps=3 * 128, clip_rewards=True)
+    card_nets, cpu_nets = zip(*(card_and_cpu(build) for build in (
+        lambda d: RNDAgent(4, shape, device=d), lambda d: RNDNetwork(shape, device=d),
+        lambda d: RNDNetwork(shape, predictor=True, device=d))))
+    cpu_rnd = make_rnd_ppo(Minecraft2d(device="cpu"), cpu_nets[0], cfg, *cpu_nets[1:])
+    rs_cpu, data = cpu_rnd.rollout(cpu_rnd.init_runner(g))
+    perms = [torch.randperm(cfg.batch_size, generator=g) for _ in range(cfg.update_epochs)]
+    masks = [[torch.rand(cfg.minibatch_size, generator=g) for _ in range(cfg.num_minibatches)]
+             for _ in range(cfg.update_epochs)]
+    return UpdateCase(cfg, card_nets, cpu_nets, rs_cpu, data, perms, masks)
+
+
+def family_update_checks(smi: str):
+    import copy
+
+    from mmtrl_tpu_torch.algos.ppo import make_ppo
+    from mmtrl_tpu_torch.algos.ppo.ppg import PPGAgent, PPGConfig, make_ppg
+    from mmtrl_tpu_torch.algos.ppo.rnd import make_rnd_ppo
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+
+    shape = (2, 84, 84)
+    cpu_env, card_env = Minecraft2d(device="cpu"), Minecraft2d()
+    card_gen = lambda: torch.Generator(device="cuda").manual_seed(SEED)  # noqa: E731
+    cpu_gen = lambda: torch.Generator().manual_seed(SEED)  # noqa: E731
+    snapshot = lambda m: [p.detach().clone() for p in m.parameters()]  # noqa: E731
+    cuda = lambda x: x.cuda()  # noqa: E731
+    cuda64 = lambda x: float64(x).cuda()  # noqa: E731
+
+    def replayed(rs, rs_cpu, convert):
+        """``rs`` with the CPU runner's observation and done flag."""
+        return dataclasses.replace(rs, obs=convert(rs_cpu.obs), done=convert(rs_cpu.done))
+
+    # The feedforward and RND updates are held to the same update in
+    # float64 on both sides.  In float32 they are discontinuous in the
+    # rounding: a pre-activation within rounding of zero takes the other
+    # side of a ReLU on one side, and Adam (eps 1e-5) turns the switched
+    # gradient term, and a gradient of pure rounding noise where the exact
+    # one is near zero, into steps of up to the learning rate.  In the RND
+    # check the CPU's float32 switches one ReLU of the agent's Conv_1 at
+    # steps 3 and 15 and ends 8.9e-6 from float64, the card's none and
+    # 1.4e-7 (tools/update_rounding.py counts them).
+    case, g = ppo_update_case()
+    cfg, rs_cpu, data, perms = case.cfg, case.runner, case.data, case.perms
+    card64, cpu64 = (copy.deepcopy(m).double() for m in (case.card, case.cpu))
+
+    def ppo_update(model, env, generator, convert):
+        algo = make_ppo(env, model, cfg)
+        rs = replayed(algo.init_runner(generator), rs_cpu, convert)
+        return algo.update_from_rollout(rs, tuple(map(convert, data)), perms)
+
+    before = snapshot(case.cpu)
+    rs_card, m_card = ppo_update(case.card, card_env, card_gen(), cuda)
+    ppo_update(card64, card_env, card_gen(), cuda64)
+    ppo_update(cpu64, cpu_env, cpu_gen(), float64)
+    rs_cpu, m_cpu = make_ppo(cpu_env, case.cpu, cfg).update_from_rollout(rs_cpu, data, perms)
+    check(int(rs_card.step) == int(rs_cpu.step) == 16, "make_ppo took the wrong step count")
+    oks = [compare_params("make_ppo update", smi, 16, [case.card], [case.cpu], [before], m_card,
+                          m_cpu, exact=([card64], [cpu64]))]
+
+    case = rnd_update_case(g)
+    cfg, rs_cpu, data, perms, masks = case.cfg, case.runner, case.data, case.perms, case.masks
+    card_nets, cpu_nets = case.card, case.cpu
+    card64, cpu64 = ([copy.deepcopy(m).double() for m in nets] for nets in (card_nets, cpu_nets))
+    cpu_rnd, card_rnd = (make_rnd_ppo(env, nets[0], cfg, nets[1], nets[2])
+                         for env, nets in ((cpu_env, cpu_nets), (card_env, card_nets)))
+    rs_card = replayed(card_rnd.init_runner(card_gen()), rs_cpu, cuda)
+    card_data = tuple(map(cuda, data))
+    # The statistics apart: an observation element that is constant over
+    # the batch has a variance of float32 roundings, which the normalization
+    # divides by sqrt(1e-8), so the predictor's inputs there differ by the
+    # two devices' summation orders times 1e4 (reported below); the update
+    # is compared from the CPU's statistics on every side.
+    stats_cpu, stats_card = cpu_rnd.statistics(rs_cpu, data), card_rnd.statistics(rs_card,
+                                                                                   card_data)
+    pairs = [(stats_card[0].mean, stats_cpu[0].mean), (stats_card[0].var, stats_cpu[0].var),
+             (stats_card[1].mean, stats_cpu[1].mean), (stats_card[1].var, stats_cpu[1].var),
+             (stats_card[2], stats_cpu[2])]
+    # float32 sums of the same values in other orders: a few roundings of
+    # each statistic's largest magnitude (at least 1)
+    stat_err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+                   for a, b in pairs)
+    next_obs = data[8].reshape((-1,) + shape)
+    norm_err = (stats_card[0].normalize(next_obs.cuda()).clamp(-5, 5).cpu()
+                - stats_cpu[0].normalize(next_obs).clamp(-5, 5)).abs().max().item()
+    emit("ppo_family", check="RND statistics card vs cpu", max_err_of_max=stat_err,
+         tol_of_max=1e-6, predictor_input_max_abs_err=norm_err,
+         obs_var_min=stats_cpu[0].var.min().item(),
+         obs_elements_var_below_1e_6=int((stats_cpu[0].var < 1e-6).sum()),
+         int_reward_var=stats_cpu[1].var.item(), card=smi, ok=stat_err <= 1e-6)
+    check(stat_err <= 1e-6, f"RND statistics on the card differ by {stat_err} of their largest")
+
+    def rnd_update(nets, env, generator, convert):
+        algo = make_rnd_ppo(env, nets[0], cfg, nets[1], nets[2])
+        rs = replayed(algo.init_runner(generator), rs_cpu, convert)
+        stats = (*(type(x)(convert(x.mean), convert(x.var), convert(x.count))
+                   for x in stats_cpu[:2]), convert(stats_cpu[2]))
+        return algo.update_from_rollout(rs, tuple(map(convert, data)), perms, masks, stats)
+
+    trained = lambda nets: [nets[0], nets[2]]  # noqa: E731  (the target never trains)
+    before = [snapshot(m) for m in trained(cpu_nets)]
+    rs_card, m_card = rnd_update(card_nets, card_env, card_gen(), cuda)
+    rnd_update(card64, card_env, card_gen(), cuda64)
+    rnd_update(cpu64, cpu_env, cpu_gen(), float64)
+    rs_cpu, m_cpu = cpu_rnd.update_from_rollout(rs_cpu, data, perms, masks, stats_cpu)
+    check(int(rs_card.step) == int(rs_cpu.predictor_opt_state.count) == 16,
+          "make_rnd_ppo took the wrong step count")
+    oks.append(compare_params("make_rnd_ppo update", smi, 16, trained(card_nets),
+                              trained(cpu_nets), before, m_card, m_cpu,
+                              exact=(trained(card64), trained(cpu64))))
+
+    # PPG: a cycle of 2 policy iterations (8 envs x 8 steps), both sides fed
+    # the same two rollouts (recorded on the CPU) and draws.  A PPG cycle
+    # is chaotic in its weights: the IMPALA trunk's max pools switch
+    # windows, and Adam turns a switched gradient into a step of up to the
+    # learning rate, so rounding-size differences grow over its steps.  The
+    # gate takes one minibatch a policy iteration and one aux epoch of two
+    # (4 steps).  The cycle reads its bf16 aux store back as float32,
+    # whatever the parameters' dtype, so it has no float64 twin.
+    cfg = PPGConfig(num_envs=8, num_steps=8, num_minibatches=1, n_iteration=2, e_auxiliary=1,
+                    num_aux_minibatches=2, total_timesteps=3 * 128)
+    card_model, cpu_model = card_and_cpu(lambda d: PPGAgent(4, shape, device=d))
+    cpu_ppg, card_ppg = make_ppg(cpu_env, cpu_model, cfg), make_ppg(card_env, card_model, cfg)
+    rs = cpu_ppg.init_runner(g)
+    recorded = []
+    for _ in range(cfg.n_iteration):
+        rs, data = cpu_ppg.rollout(rs)
+        recorded.append((rs.obs, rs.done, data))
+    perms = [[torch.randperm(cfg.batch_size, generator=g)] for _ in range(cfg.n_iteration)]
+    aux_perms = [torch.randperm(cfg.batch_size * cfg.n_iteration, generator=g)
+                 for _ in range(cfg.e_auxiliary)]
+
+    def cycle(ppg_algo, generator, device):
+        rollouts = iter(recorded)
+
+        def rollout(rs):
+            obs, done, data = next(rollouts)
+            return (dataclasses.replace(rs, obs=obs.to(device), done=done.to(device)),
+                    tuple(x.to(device) for x in data))
+        return ppg_algo.train_iteration(ppg_algo.init_runner(generator), rollout, perms,
+                                        aux_perms)
+
+    before = snapshot(cpu_model)
+    rs_card, m_card = cycle(card_ppg, card_gen(), "cuda")
+    rs_cpu, m_cpu = cycle(cpu_ppg, g, "cpu")
+    steps = cfg.opt_steps_per_update
+    check(int(rs_card.step) == int(rs_cpu.step) == steps, "make_ppg cycle took the wrong steps")
+    oks.append(compare_params("make_ppg cycle", smi, steps, [card_model], [cpu_model], [before],
+                              m_card, m_cpu))
+    check(all(oks), "an update on the card disagrees with the CPU (the lines above)")
+
+
+def family_checks(smi: str, tmp: str, ppo_ckpt: str):
+    import os
+
+    from mmtrl_tpu_torch.algos.ppo.core import runner_payload
+    from mmtrl_tpu_torch.algos.ppo.rnd import make_rnd_ppo
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs import make
+    from mmtrl_tpu_torch.scripts import evaluate, minecraft_cnn, minecraft_lstm_google, ppg, ppo_rnd
+
+    # deterministic cuDNN algorithms, as the entry points take them by
+    # default (--torch-deterministic): the updates below are then the same
+    # on every run, and the card is compared with the CPU, not with itself
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    family_agent_checks(smi)
+    t1 = time.perf_counter()
+    family_update_checks(smi)
+    emit("ppo_family", section="card vs cpu", agents_s=t1 - t0,
+         updates_s=time.perf_counter() - t1, card=smi)
+
+    # the entry points through their main, each at its defaults
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    save_dir = os.path.join(tmp, "ck")
+    scripts = {"minecraft_cnn": minecraft_cnn, "minecraft_lstm_google": minecraft_lstm_google,
+               "ppo_rnd": ppo_rnd, "ppg": ppg}
+    cuda = torch.device("cuda")
+    runs, ckpts = {}, {}
+    t_section = time.perf_counter()
+    for name, argv in FAMILY_RUNS.items():
+        module = scripts[name]
+        args = cli(module.Args, argv + ["--save-dir", save_dir])
+        env = make(args.env_id, device=cuda)
+        modules = module.make_agent(args, env, cuda)
+        parts = ("model", "target", "predictor") if name == "ppo_rnd" else ("model",)
+        modules = modules if isinstance(modules, tuple) else (modules,)
+        start = {part: [p.detach().clone() for p in m.parameters()]
+                 for part, m in zip(parts, modules, strict=True)}
+        del modules
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = module.main(args)
+        run_s = time.perf_counter() - t0
+        for row in out["history"]:
+            emit("ppo_family", run=f"scripts.{name}", **row, card=smi)
+        runner = out["runner"]
+        changed = {part: sum(not torch.equal(a, b) for a, b in
+                             zip(start[part], getattr(runner, part).parameters()))
+                   for part in parts}
+        losses = [v for row in out["history"] for k, v in row.items()
+                  if k.startswith("losses/") and k != "losses/explained_variance"]
+        stats = [getattr(runner.stats, f.name) for f in dataclasses.fields(runner.stats)]
+        updates = 1 if name == "ppg" else 3
+        emit("ppo_family", run=f"scripts.{name}", updates=updates,
+             env_steps=out["global_step"], wall_s=run_s, sps_of_run=out["sps"],
+             wall_s_per_update=[row["wall_s"] for row in out["history"]],
+             episodes=out["episode_count"], episodic_return=out["episodic_return"],
+             params_changed=changed, params={k: len(v) for k, v in start.items()},
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        check(len(out["history"]) == updates and all(math.isfinite(x) for x in losses),
+              f"scripts.{name}: the losses are not all finite")
+        for part in parts:  # the RND target never trains; everything else does
+            want = 0 if part == "target" else len(start[part])
+            check(changed[part] == want, f"scripts.{name}: {changed[part]} of "
+                                         f"{len(start[part])} {part} parameters changed")
+        check(all(bool(torch.isfinite(v).all()) for v in stats),
+              f"scripts.{name}: non-finite episode statistics")
+        runs[name], ckpts[name] = out, os.path.join(save_dir, out["run_name"])
+
+    emit("ppo_family", section="entry points", seconds=time.perf_counter() - t_section,
+         card=smi)
+
+    # the evaluate twin at its defaults (16 envs x 512 steps).  Its model's
+    # first calls are held against the checkpoint loaded on the CPU, on the
+    # same inputs: a checkpoint not loaded, or not used, fails.
+    for label, argv in (("minecraft_cnn", ["--script", "minecraft_cnn"]),
+                        ("train casl", ["--script", "train", "--attn-type", "casl"])):
+        ckpt = ckpts["minecraft_cnn"] if label == "minecraft_cnn" else ppo_ckpt
+        if not ckpt:
+            continue
+        args = cli(evaluate.Args, argv + ["--load-from", ckpt])
+        t0 = time.perf_counter()
+        result, calls = evaluate_recording_calls(evaluate, args, EVAL_CHECK_CALLS)
+        wall = time.perf_counter() - t0
+        ref, _ = evaluate.build_model(args, make(args.env_id, device="cpu"), "cpu")
+        ref.load_state_dict(load_run(ckpt, map_location="cpu")["model"])
+        with torch.no_grad():
+            wants = [ref(*inputs)[0] for inputs, _ in calls]
+        err = max((logits - want).abs().max().item() for (_, logits), want in zip(calls, wants))
+        scale = max(want.abs().max().item() for want in wants)
+        emit("ppo_family", run=f"scripts.evaluate {label}", num_envs=args.num_envs,
+             num_steps=args.num_steps, wall_s=wall, **result, calls_checked=len(calls),
+             logits_max_abs_err_vs_cpu=err, logits_max_abs=scale, tol_of_max=PPO_AGENT_TOL_OF_MAX,
+             card=smi)
+        check(len(calls) == EVAL_CHECK_CALLS and err <= PPO_AGENT_TOL_OF_MAX * scale,
+              f"scripts.evaluate {label}: the card's logits are {err} from the checkpoint's "
+              f"on the CPU (largest {scale})")
+        check(all(math.isfinite(v) for v in result.values()), "non-finite evaluation")
+        # every episode ends within 30 steps: 512 steps end at least 17 per env
+        check(result["eval/episodes"] >= 17 * args.num_envs, "too few evaluation episodes")
+
+    # update 4 of the RND run in memory, then in the child its resume
+    args = cli(ppo_rnd.Args, RND_RESUME_ARGS)
+    rnd_runner = runs["ppo_rnd"]["runner"]
+    cont = make_rnd_ppo(make(args.env_id, device=cuda), rnd_runner.model,
+                        ppo_rnd.rnd_config_from(args), rnd_runner.target, rnd_runner.predictor)
+    rnd_runner, _ = cont.train_iteration(rnd_runner)
+    result = os.path.join(tmp, "family_child.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_section = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "--family-child",
+                    ckpts["ppo_rnd"], result, *(ckpts[name] for name in FAMILY_PROFILES)],
+                   check=True, timeout=300, cwd=here)
+    emit("ppo_family", section="child process", seconds=time.perf_counter() - t_section,
+         card=smi)
+    child = torch.load(result, weights_only=True)
+    mine = runner_payload(rnd_runner)
+    differing = [k for k in mine if not _same_payload(mine[k], child["rnd_payload"][k])]
+    emit("ppo_family", run="ppo_rnd resume", initial_update=child["rnd_initial_update"],
+         updates=child["rnd_updates"], differing_fields=differing, card=smi)
+    check(child["rnd_initial_update"] == 4 and child["rnd_updates"] == [4],
+          "the resumed RND run did not run update 4 alone")
+    check(not differing, f"the resumed RND run differs from update 4 in memory in {differing}")
+    for name in FAMILY_PROFILES:
+        prof = child[name]
+        emit("ppo_family", run=f"profiled scripts.{name} update", wall_s=prof["wall_s"],
+             device_ops=prof["kernel_launches"], device_busy_ms=prof["device_busy_ms"],
+             device_idle_share=1.0 - prof["device_busy_ms"] / (1e3 * prof["wall_s"]),
+             top_kernels=prof["top_kernels"], card=smi)
+
+
+def evaluate_recording_calls(evaluate, args, calls: int):
+    """``evaluate.main(args)``, and the CPU copies of the inputs and the
+    logits of its model's first ``calls`` calls."""
+    real, records = evaluate.evaluate_policy, []
+
+    def to_cpu(x):
+        return tuple(map(to_cpu, x)) if isinstance(x, (tuple, list)) else x.cpu()
+
+    def recorded(env, model, *rest, **kwargs):
+        def hook(module, inputs, output):
+            if len(records) < calls:
+                records.append((to_cpu(inputs), output[0].cpu()))
+        handle = model.register_forward_hook(hook)
+        try:
+            return real(env, model, *rest, **kwargs)
+        finally:
+            handle.remove()
+
+    evaluate.evaluate_policy = recorded
+    try:
+        return evaluate.main(args), records
+    finally:
+        evaluate.evaluate_policy = real
+
+
+def _same_payload(a, b) -> bool:
+    """Two checkpoint payloads equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_payload(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_payload(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def family_child(rnd_ckpt: str, result: str, *ckpts: str) -> None:
+    """The ppo_family phase's child process: ``scripts.ppo_rnd --load-from``
+    (update 4), then for each of ``FAMILY_PROFILES`` (its checkpoints in
+    ``ckpts``, in order) one warm and one profiled update."""
+    from mmtrl_tpu_torch.algos.ppo.core import runner_payload
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import minecraft_cnn, minecraft_lstm_google, ppg, ppo_rnd
+
+    out = {}
+    resumed = ppo_rnd.main(cli(ppo_rnd.Args, RND_RESUME_ARGS + ["--load-from", rnd_ckpt]))
+    out["rnd_initial_update"] = resumed["initial_update"]
+    out["rnd_updates"] = [r["update"] for r in resumed["history"]]
+    out["rnd_payload"] = runner_payload(resumed["runner"])
+    scripts = {"minecraft_cnn": minecraft_cnn, "minecraft_lstm_google": minecraft_lstm_google,
+               "ppo_rnd": ppo_rnd, "ppg": ppg}
+    for (name, argv), ckpt in zip(FAMILY_PROFILES.items(), ckpts, strict=True):
+        args = cli(scripts[name].Args, argv)
+        algo, _, device = scripts[name].build(args)
+        runner = algo.init_runner(torch.Generator(device=device).manual_seed(args.seed))
+        runner = runner.load_payload(load_run(ckpt, map_location=device))
+        runner, _ = algo.train_iteration(runner)  # warm
+        (runner, _), wall, launches, busy, top = device_profile(
+            lambda: algo.train_iteration(runner))
+        out[name] = {"wall_s": wall, "kernel_launches": launches, "device_busy_ms": busy,
+                     "top_kernels": top}
+    torch.save(out, result)
 
 
 def phase_timing(smi: str):
@@ -858,6 +1439,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--ppo-resume"]:  # the ppo phase's child process
         ppo_resume(*sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--family-child"]:  # the ppo_family phase's child process
+        family_child(*sys.argv[2:])
+        return 0
     smi = card()
     t_start = time.perf_counter()
     phase_build()
@@ -866,7 +1450,9 @@ def main() -> int:
     phase_grad()
     phase_serve()
     launches, _ = phase_train(smi)
-    phase_ppo(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        _, ppo_ckpt = phase_ppo(smi, tmp)
+        phase_ppo_family(smi, ppo_ckpt)
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}

@@ -1,18 +1,21 @@
-"""Recurrent PPO on tensors; port of ``PPOConfig``, ``RunnerState`` and
-``make_recurrent_ppo`` of ``mmtrl_tpu/algos/ppo/core.py``.
+"""PPO on tensors; port of ``PPOConfig``, ``RunnerState``, ``make_ppo``
+and ``make_recurrent_ppo`` of ``mmtrl_tpu/algos/ppo/core.py``.
 
 One training iteration is the JAX program's three stages as Python loops
 over tensors on the run's device:
 
-  rollout -- ``num_steps`` agent steps (T = 1), categorical samples, env
-             steps and episode statistics;
+  rollout -- ``num_steps`` agent steps, categorical samples, env steps and
+             episode statistics;
   gae     -- the reverse loop of ``ops/gae.py``;
-  update  -- ``update_epochs`` epochs of ``num_minibatches`` minibatches,
-             a fresh permutation of the env indices per epoch; each
-             minibatch replays its envs' whole sequences from the
-             rollout's initial carry (the reference's sequence-preserving
-             scheme, src/train.py:200-218), so the agent's LSTM runs
-             ``num_steps`` steps forward and back per minibatch.
+  update  -- ``update_epochs`` epochs of ``num_minibatches`` minibatches
+             with a fresh permutation per epoch.  The feedforward variant
+             (``make_ppo``) permutes all ``num_envs * num_steps`` rows of
+             the flattened batch; the recurrent one permutes the env
+             indices, and each minibatch replays its envs' whole sequences
+             from the rollout's initial carry (the reference's
+             sequence-preserving scheme, src/train.py:200-218), so the
+             agent's LSTM runs ``num_steps`` steps forward and back per
+             minibatch.
 
 One ``torch.Generator`` on the run's device drives the env's reset draws,
 the action samples and the permutations, in that order within an
@@ -20,14 +23,14 @@ iteration.  The optimizer is ``ops/fused_optim.py::fused_clip_adamw`` with
 ``weight_decay=0`` and ``eps=1e-5``: term for term JAX's
 ``optax.chain(clip_by_global_norm, adam(eps=1e-5))``, under the linear
 anneal ``lr * (1 - (count // opt_steps_per_update) / num_updates)`` read at
-the count before the increment.  The feedforward and continuous PPO
-variants are not ported yet.
+the count before the increment.  The continuous PPO variant is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -93,12 +96,67 @@ class PPOConfig:
         return self.num_minibatches * self.update_epochs
 
 
+def _cpu(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().cpu()
+
+
+def runner_payload(x: Any) -> Any:
+    """A runner (or one of its fields) as a checkpoint payload of plain
+    tensors, lists and dicts on the CPU, loadable with
+    ``torch.load(weights_only=True)``: a module as its state dict, a
+    generator as its state, an Adam state as ``{count, mu, nu}``, a
+    dataclass as a dict of its fields, a tuple as a list."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return _cpu(x)
+    if isinstance(x, nn.Module):
+        return {k: _cpu(v) for k, v in x.state_dict().items()}
+    if isinstance(x, torch.Generator):
+        return x.get_state()
+    if isinstance(x, ScaleByAdamState):
+        return {"count": _cpu(x.count), "mu": [_cpu(m) for m in x.mu],
+                "nu": [_cpu(v) for v in x.nu]}
+    if dataclasses.is_dataclass(x):
+        return {f.name: runner_payload(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, tuple):
+        return [runner_payload(v) for v in x]
+    raise TypeError(f"no payload for {type(x).__name__}")
+
+
+def load_runner_payload(template: Any, payload: Any) -> Any:
+    """``template`` with every field taken from ``payload``, each tensor on
+    its template's device; modules and generators are loaded in place."""
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return payload.to(template.device)
+    if isinstance(template, nn.Module):
+        template.load_state_dict(payload)
+        return template
+    if isinstance(template, torch.Generator):
+        template.set_state(payload.cpu())  # a CPU ByteTensor, any device
+        return template
+    if isinstance(template, ScaleByAdamState):
+        device = template.count.device
+        return ScaleByAdamState(payload["count"].to(device), [m.to(device) for m in payload["mu"]],
+                                [v.to(device) for v in payload["nu"]])
+    if dataclasses.is_dataclass(template):
+        return type(template)(**{f.name: load_runner_payload(getattr(template, f.name),
+                                                             payload[f.name])
+                                 for f in dataclasses.fields(template)})
+    if isinstance(template, tuple):
+        return tuple(load_runner_payload(t, v) for t, v in zip(template, payload, strict=True))
+    raise TypeError(f"no payload for {type(template).__name__}")
+
+
 @dataclasses.dataclass
 class RunnerState:
     """Everything an iteration carries: the agent (its parameters are the
     trained weights) and the optimizer state over ``model.parameters()`` in
     order, the env state, the current observation, the done flag that
-    preceded it, the LSTM carry, the episode statistics and the generator."""
+    preceded it, the LSTM carry (``()`` for a feedforward agent), the episode
+    statistics and the generator."""
 
     model: nn.Module
     opt_state: ScaleByAdamState
@@ -114,41 +172,10 @@ class RunnerState:
         return self.opt_state.count
 
     def payload(self) -> Dict[str, Any]:
-        """A checkpoint payload of plain tensors, lists and dicts on the CPU,
-        loadable with ``torch.load(weights_only=True)``."""
-        cpu = lambda x: x.detach().cpu()  # noqa: E731
-        fields = lambda dc: {f.name: cpu(getattr(dc, f.name)) for f in dataclasses.fields(dc)}  # noqa: E731
-        return {
-            "model": {k: cpu(v) for k, v in self.model.state_dict().items()},
-            "opt_state": {"count": cpu(self.opt_state.count),
-                          "mu": [cpu(x) for x in self.opt_state.mu],
-                          "nu": [cpu(x) for x in self.opt_state.nu]},
-            "env_state": fields(self.env_state),
-            "obs": cpu(self.obs),
-            "done": cpu(self.done),
-            "carry": [cpu(x) for x in self.carry],
-            "stats": fields(self.stats),
-            "generator": self.generator.get_state(),
-        }
+        return runner_payload(self)
 
     def load_payload(self, payload: Dict[str, Any]) -> "RunnerState":
-        """This runner with every field taken from ``payload``, on this
-        runner's device; the model and the generator are loaded in place."""
-        device = self.obs.device
-        on = lambda x: x.to(device)  # noqa: E731
-        self.model.load_state_dict(payload["model"])
-        self.generator.set_state(payload["generator"].cpu())  # a CPU ByteTensor, any device
-        opt = payload["opt_state"]
-        return dataclasses.replace(
-            self,
-            opt_state=ScaleByAdamState(on(opt["count"]), [on(x) for x in opt["mu"]],
-                                       [on(x) for x in opt["nu"]]),
-            env_state=type(self.env_state)(**{k: on(v) for k, v in payload["env_state"].items()}),
-            obs=on(payload["obs"]),
-            done=on(payload["done"]),
-            carry=tuple(on(x) for x in payload["carry"]),
-            stats=EpisodeStatistics(**{k: on(v) for k, v in payload["stats"].items()}),
-        )
+        return load_runner_payload(self, payload)
 
 
 def lr_schedule(cfg: PPOConfig) -> Callable[[torch.Tensor], torch.Tensor] | float:
@@ -217,6 +244,188 @@ def _explained_variance(values: torch.Tensor, returns: torch.Tensor) -> torch.Te
     return torch.where(var_y == 0, torch.nan, 1 - (returns - values).var(correction=0) / var_y)
 
 
+Metrics = Dict[str, torch.Tensor]
+
+
+def draw_perm(generator: torch.Generator, n: int, perms: Optional[Sequence[torch.Tensor]],
+              epoch: int, shape: Tuple[int, int], device: torch.device) -> torch.Tensor:
+    """The epoch's permutation of ``range(n)`` as ``shape`` (minibatches x
+    rows): from the generator, or ``perms[epoch]`` when a test replays
+    another implementation's draws."""
+    if perms is None:
+        perm = torch.randperm(n, generator=generator, device=generator.device)
+    else:
+        perm = perms[epoch]
+    return perm.to(device).reshape(shape)
+
+
+def grads_of(loss: torch.Tensor, params: Sequence[torch.Tensor],
+             allow_unused: bool = False) -> List[torch.Tensor]:
+    """d loss / d params.  A parameter the loss does not reach raises,
+    unless ``allow_unused``: then its gradient is zeros, as ``jax.grad``
+    gives it (PPG's aux head in the policy phase)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=allow_unused)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def run_epochs(
+    epochs: int,
+    target_kl: Optional[float],
+    params: Sequence[torch.Tensor],
+    opt_state: Any,
+    perm_of: Callable[[int], torch.Tensor],
+    minibatch_step: Callable[[Any, torch.Tensor], Tuple[Any, Metrics]],
+) -> Tuple[Any, Metrics]:
+    """``epochs`` epochs of ``minibatch_step(opt_state, idx)`` over the rows
+    of ``perm_of(epoch)``; returns the optimizer state and the last
+    minibatch's metrics.  With ``target_kl``: after an epoch's last
+    minibatch crossed it, each later epoch still runs, from the frozen
+    state, and its update is discarded (its metrics stay), as JAX's
+    ``_kl_epoch_scan`` does."""
+    stop, metrics = False, {}
+    for epoch in range(epochs):
+        perm = perm_of(epoch)
+        frozen = ([p.detach().clone() for p in params], opt_state) if stop else None
+        for idx in perm:
+            opt_state, metrics = minibatch_step(opt_state, idx)
+        if frozen is not None:
+            with torch.no_grad():
+                for p, saved in zip(params, frozen[0]):
+                    p.copy_(saved)
+            opt_state = frozen[1]
+        elif target_kl is not None:
+            stop = bool(metrics["losses/approx_kl"] > target_kl)
+    return opt_state, {k: v.detach() for k, v in metrics.items()}
+
+
+def ppo_step(cfg: PPOConfig, schedule, params: Sequence[torch.Tensor], opt_state: ScaleByAdamState,
+             loss: torch.Tensor, allow_unused: bool = False) -> ScaleByAdamState:
+    """One clipped, annealed Adam step of the PPO optimizer on ``loss``
+    (``allow_unused`` as in ``grads_of``)."""
+    return fused_clip_adamw(params, grads_of(loss, params, allow_unused), opt_state, schedule,
+                            eps=1e-5, weight_decay=0.0, max_grad_norm=cfg.max_grad_norm)
+
+
+# =============================================================================
+# Feedforward discrete PPO
+# =============================================================================
+@dataclasses.dataclass
+class FeedforwardPPO:
+    """The functions of ``make_ppo``, by name; ``rollout`` is the first
+    half of ``train_iteration``, ``update_from_rollout`` the second."""
+
+    init_runner: Callable[[torch.Generator], RunnerState]
+    rollout: Callable[[RunnerState], Tuple[RunnerState, Rollout]]
+    train_iteration: Callable[[RunnerState], Tuple[RunnerState, Metrics]]
+    update_from_rollout: Callable[..., Tuple[RunnerState, Metrics]]
+
+
+def init_feedforward_runner(env: Environment, model: nn.Module, num_envs: int,
+                            generator: torch.Generator) -> RunnerState:
+    obs, env_state = env.reset(num_envs, generator)
+    return RunnerState(
+        model=model,
+        opt_state=init_adam_state(list(model.parameters())),
+        env_state=env_state,
+        obs=obs,
+        done=torch.zeros(num_envs, dtype=torch.bool, device=obs.device),
+        carry=(),
+        stats=EpisodeStatistics.create(num_envs, obs.device),
+        generator=generator,
+    )
+
+
+def feedforward_rollout(env: Environment, cfg: PPOConfig, rs: RunnerState
+                        ) -> Tuple[RunnerState, Rollout]:
+    """``num_steps`` steps of ``rs.model(obs) -> (logits, value, ...)``."""
+    T, N = cfg.num_steps, cfg.num_envs
+    device = rs.obs.device
+    obs = torch.empty((T,) + tuple(rs.obs.shape), dtype=rs.obs.dtype, device=device)
+    actions = torch.empty((T, N), dtype=torch.long, device=device)
+    logprobs, rewards, values = (torch.empty((T, N), device=device) for _ in range(3))
+    dones = torch.empty((T, N), dtype=torch.bool, device=device)
+    env_state, o, done, stats = rs.env_state, rs.obs, rs.done, rs.stats
+    for t in range(T):
+        with torch.no_grad():
+            logits, value = rs.model(o)[:2]
+        action = categorical_sample(rs.generator, logits)
+        obs[t], actions[t], dones[t], values[t] = o, action, done, value
+        logprobs[t] = categorical_log_prob(logits, action)
+        o, env_state, reward, done, info = env.step(env_state, action, rs.generator)
+        # Episode statistics take the RAW reward when a reward-transforming
+        # wrapper reports one (src/train.py:52-57); the loss the clipped one.
+        stats = stats.update(info.get("raw_reward", reward), done)
+        rewards[t] = _maybe_clip(cfg, reward)
+    rs = dataclasses.replace(rs, env_state=env_state, obs=o, done=done, stats=stats)
+    return rs, (obs, actions, logprobs, rewards, dones, values)
+
+
+def feedforward_update(cfg: PPOConfig, rs: RunnerState, rollout: Rollout,
+                       perms: Optional[Sequence[torch.Tensor]] = None,
+                       allow_unused: bool = False
+                       ) -> Tuple[RunnerState, Metrics, torch.Tensor]:
+    """GAE and ``cfg.update_epochs`` epochs over permutations of all
+    ``batch_size`` rows; returns the runner, the last minibatch's metrics
+    and the (T, N) returns.  ``allow_unused`` gives a parameter that the
+    loss does not reach a zero gradient (PPG's aux head)."""
+    obs, actions, logprobs, rewards, dones, values = rollout
+    model = rs.model
+    with torch.no_grad():
+        next_value = model(rs.obs)[1]
+    advantages, returns = compute_gae(rewards, values, dones, next_value, rs.done,
+                                      cfg.gamma, cfg.gae_lambda)
+    batch = tuple(x.reshape((cfg.batch_size,) + x.shape[2:])
+                  for x in (obs, actions, logprobs, advantages, returns, values))
+    params = list(model.parameters())
+    schedule = lr_schedule(cfg)
+
+    def minibatch_step(opt_state, idx):
+        b_obs, b_act, b_logp, b_adv, b_ret, b_val = (x[idx] for x in batch)
+        logits, newvalue = model(b_obs)[:2]
+        loss, metrics = _ppo_loss(cfg, categorical_log_prob(logits, b_act),
+                                  categorical_entropy(logits), newvalue, b_logp, b_adv, b_ret,
+                                  b_val)
+        return ppo_step(cfg, schedule, params, opt_state, loss, allow_unused), metrics
+
+    shape = (cfg.num_minibatches, cfg.minibatch_size)
+    opt_state, metrics = run_epochs(
+        cfg.update_epochs, cfg.target_kl, params, rs.opt_state,
+        lambda e: draw_perm(rs.generator, cfg.batch_size, perms, e, shape, obs.device),
+        minibatch_step)
+    return dataclasses.replace(rs, opt_state=opt_state), metrics, returns
+
+
+def make_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> FeedforwardPPO:
+    """``model(obs (N, ...)) -> (logits, value)``; minibatches are
+    permutations of the flattened (T * N) batch.  ``init_runner`` takes
+    ``model``; the other functions use the runner's own model."""
+
+    def update_from_rollout(rs: RunnerState, rollout: Rollout,
+                            perms: Optional[Sequence[torch.Tensor]] = None):
+        """PPO update from a completed rollout; ``rs`` carries the
+        post-rollout obs and done for the value bootstrap.  ``perms`` (one
+        permutation of ``range(batch_size)`` per epoch) replaces the
+        generator's draws, so a test can replay another implementation's."""
+        rs, metrics, returns = feedforward_update(cfg, rs, rollout, perms)
+        metrics["losses/explained_variance"] = _explained_variance(rollout[5].reshape(-1),
+                                                                   returns.reshape(-1))
+        return rs, metrics
+
+    def train_iteration(rs: RunnerState):
+        rs, data = feedforward_rollout(env, cfg, rs)
+        return update_from_rollout(rs, data)
+
+    return FeedforwardPPO(
+        init_runner=lambda generator: init_feedforward_runner(env, model, cfg.num_envs, generator),
+        rollout=lambda rs: feedforward_rollout(env, cfg, rs),
+        train_iteration=train_iteration,
+        update_from_rollout=update_from_rollout,
+    )
+
+
+# =============================================================================
+# Recurrent (LSTM) PPO
+# =============================================================================
 @dataclasses.dataclass
 class RecurrentPPO:
     """The functions of ``make_recurrent_ppo``, by name (JAX returns them in
@@ -225,8 +434,8 @@ class RecurrentPPO:
 
     init_runner: Callable[..., RunnerState]
     rollout: Callable[[RunnerState], Tuple[RunnerState, Rollout]]
-    train_iteration: Callable[[RunnerState], Tuple[RunnerState, Dict[str, torch.Tensor]]]
-    update_from_rollout: Callable[..., Tuple[RunnerState, Dict[str, torch.Tensor]]]
+    train_iteration: Callable[[RunnerState], Tuple[RunnerState, Metrics]]
+    update_from_rollout: Callable[..., Tuple[RunnerState, Metrics]]
     policy_step: Callable[..., Tuple[torch.Tensor, ...]]
 
 
@@ -275,8 +484,6 @@ def make_recurrent_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> Re
             action, logprob, value, carry = policy_step(rs.model, o, done, carry, rs.generator)
             obs[t], actions[t], logprobs[t], dones[t], values[t] = o, action, logprob, done, value
             o, env_state, reward, done, info = env.step(env_state, action, rs.generator)
-            # Episode statistics take the RAW reward when a reward-transforming
-            # wrapper reports one (src/train.py:52-57); the loss the clipped one.
             stats = stats.update(info.get("raw_reward", reward), done)
             rewards[t] = _maybe_clip(cfg, reward)
         rs = dataclasses.replace(rs, env_state=env_state, obs=o, done=done, carry=carry,
@@ -286,7 +493,7 @@ def make_recurrent_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> Re
     def update_from_rollout(
         rs: RunnerState, initial_carry: Carry, rollout: Rollout,
         perms: Optional[Sequence[torch.Tensor]] = None,
-    ) -> Tuple[RunnerState, Dict[str, torch.Tensor]]:
+    ) -> Tuple[RunnerState, Metrics]:
         """PPO update from a completed rollout.  ``rs`` carries the
         post-rollout (obs, done, carry) for the value bootstrap; ``rollout``
         is time-major (T, N, ...).  ``perms`` (one permutation of the env
@@ -299,47 +506,32 @@ def make_recurrent_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> Re
         advantages, returns = compute_gae(rewards, values, dones, next_value[0], rs.done,
                                           cfg.gamma, cfg.gae_lambda)
         params = list(model.parameters())
-        opt_state, stop, metrics = rs.opt_state, False, {}
-        for epoch in range(cfg.update_epochs):
-            if perms is None:
-                perm = torch.randperm(cfg.num_envs, generator=rs.generator,
-                                      device=rs.generator.device)
-            else:
-                perm = perms[epoch]
-            perm = perm.to(obs.device).reshape(cfg.num_minibatches, envs_per_batch)
-            # After the target KL was crossed an epoch still runs, from the
-            # frozen state, and its update is discarded (its metrics stay),
-            # as JAX's ``_kl_epoch_scan`` does.
-            frozen = ([p.detach().clone() for p in params], opt_state) if stop else None
-            for idx in perm:
-                logits, newvalue, _ = model(obs[:, idx], dones[:, idx],
-                                            tuple(c[idx] for c in initial_carry))
-                loss, metrics = _ppo_loss(
-                    cfg,
-                    categorical_log_prob(logits, actions[:, idx]).reshape(-1),
-                    categorical_entropy(logits).reshape(-1),
-                    newvalue.reshape(-1),
-                    logprobs[:, idx].reshape(-1),
-                    advantages[:, idx].reshape(-1),
-                    returns[:, idx].reshape(-1),
-                    values[:, idx].reshape(-1),
-                )
-                grads = torch.autograd.grad(loss, params)
-                opt_state = fused_clip_adamw(params, grads, opt_state, schedule, eps=1e-5,
-                                             weight_decay=0.0, max_grad_norm=cfg.max_grad_norm)
-            if frozen is not None:
-                with torch.no_grad():
-                    for p, saved in zip(params, frozen[0]):
-                        p.copy_(saved)
-                opt_state = frozen[1]
-            elif cfg.target_kl is not None:
-                stop = bool(metrics["losses/approx_kl"] > cfg.target_kl)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+
+        def minibatch_step(opt_state, idx):
+            logits, newvalue, _ = model(obs[:, idx], dones[:, idx],
+                                        tuple(c[idx] for c in initial_carry))
+            loss, metrics = _ppo_loss(
+                cfg,
+                categorical_log_prob(logits, actions[:, idx]).reshape(-1),
+                categorical_entropy(logits).reshape(-1),
+                newvalue.reshape(-1),
+                logprobs[:, idx].reshape(-1),
+                advantages[:, idx].reshape(-1),
+                returns[:, idx].reshape(-1),
+                values[:, idx].reshape(-1),
+            )
+            return ppo_step(cfg, schedule, params, opt_state, loss), metrics
+
+        shape = (cfg.num_minibatches, envs_per_batch)
+        opt_state, metrics = run_epochs(
+            cfg.update_epochs, cfg.target_kl, params, rs.opt_state,
+            lambda e: draw_perm(rs.generator, cfg.num_envs, perms, e, shape, obs.device),
+            minibatch_step)
         metrics["losses/explained_variance"] = _explained_variance(values.reshape(-1),
                                                                    returns.reshape(-1))
         return dataclasses.replace(rs, opt_state=opt_state), metrics
 
-    def train_iteration(rs: RunnerState) -> Tuple[RunnerState, Dict[str, torch.Tensor]]:
+    def train_iteration(rs: RunnerState) -> Tuple[RunnerState, Metrics]:
         initial_carry = rs.carry
         rs, data = rollout(rs)
         return update_from_rollout(rs, initial_carry, data)

@@ -4,7 +4,8 @@
 TensorBoard logging with the reference's names (src/train.py:269-279), SPS
 accounting, periodic checkpoints with ``--save-interval``/``--save-dir``/
 ``--load-from`` (src/utils.py:23-44,103-108) and ``--profile``.  One
-``train_iteration`` call per update.  Not ported: ``--track`` and
+``train_iteration`` call per update, of any algorithm of the package:
+feedforward and recurrent PPO, PPO + RND, or a PPG cycle.  Not ported: ``--track`` and
 ``--capture-video`` (ROADMAP A.9 ports ``utils/wandb_local`` and
 ``utils/video``; both raise), and the JAX runner's run journal
 (``utils/resume.journal_run``).
@@ -17,17 +18,23 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from mmtrl_tpu_torch.algos.ppo.core import PPOConfig, RecurrentPPO, lr_schedule
+from mmtrl_tpu_torch.algos.ppo.core import lr_schedule
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 
 PROFILE_UPDATES = (3, 7)  # --profile traces these updates, both included
 
 
-def run_training(ppo: RecurrentPPO, cfg: PPOConfig, args, device: torch.device,
+def run_training(algo: Any, cfg: Any, args, device: torch.device,
                  run_name: Optional[str] = None) -> Dict[str, Any]:
-    """Drives ``cfg.num_updates`` iterations; returns a summary dict with the
-    final runner and one row per update (wall seconds, SPS, losses, peak
+    """Drives ``cfg.num_updates`` iterations of ``algo``, which has
+    ``init_runner(generator)`` and ``train_iteration(runner)``; the runner
+    has ``step`` (optimizer steps), ``stats``, ``payload()`` and
+    ``load_payload()``.  ``cfg`` gives ``batch_size`` (env steps per
+    iteration), ``num_updates``, ``opt_steps_per_update`` and the learning
+    rate's ``anneal_lr`` and ``learning_rate``.  Every metric the iteration
+    returns is logged under its own name.  Returns a summary dict with the
+    final runner and one row per update (wall seconds, SPS, metrics, peak
     device memory)."""
     for flag in ("track", "capture_video"):
         if getattr(args, flag, False):
@@ -38,7 +45,7 @@ def run_training(ppo: RecurrentPPO, cfg: PPOConfig, args, device: torch.device,
     schedule = lr_schedule(cfg)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    runner = ppo.init_runner(generator)
+    runner = algo.init_runner(generator)
     initial_update = 1
     if getattr(args, "load_from", ""):
         runner = runner.load_payload(load_run(args.load_from, map_location=device))
@@ -59,7 +66,7 @@ def run_training(ppo: RecurrentPPO, cfg: PPOConfig, args, device: torch.device,
         if getattr(args, "profile", False) and update == PROFILE_UPDATES[0]:
             profiler = _start_profile(run_name, cuda)
         t0 = time.perf_counter()
-        runner, metrics = ppo.train_iteration(runner)
+        runner, metrics = algo.train_iteration(runner)
         if cuda:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0

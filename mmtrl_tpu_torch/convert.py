@@ -10,10 +10,17 @@ the ``state_dict`` key with its leaf renamed and, for kernels, transposed:
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, which
 checks that every name and shape lines up.  The same walk serves every
-ported model, the recurrent agents too (``agent_params_from_flax``).
+ported model (``agent_params_from_flax``): the recurrent agents,
+``CNNAgent``, the google variant's ``GoogleAgent`` (its hidden heads
+``Dense_0`` and ``Dense_1``), ``RNDAgent``, the RND target and predictor
+(``trunk``, ``Dense_0``, and the predictor's ``Dense_1``) and ``PPGAgent``,
+whose IMPALA trunk keeps flax's auto-numbered names
+(``network.ConvSequence_0.Conv_0``,
+``network.ConvSequence_0.ResidualBlock_1.Conv_1``, ...).
 ``adam_state_from_flax`` maps an optax ``ScaleByAdamState`` the same way,
-and ``ppo_opt_state_from_flax`` finds that state inside the PPO
-optimizer's chain, so a JAX train state carries over whole.
+and ``ppo_opt_state_from_flax`` finds that state inside an optimizer's
+chain (the PPO optimizer's, or the RND predictor's plain ``optax.adam``),
+so a JAX train state carries over whole.
 """
 
 from __future__ import annotations
@@ -86,7 +93,8 @@ agent_params_from_flax = dt_params_from_flax
 def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdamState:
     """``ScaleByAdamState`` of the PPO optimizer's optax state,
     ``chain(clip_by_global_norm, adam)``: ``(EmptyState, (ScaleByAdamState,
-    ScaleByScheduleState or EmptyState))``.  The schedule's count equals the
+    ScaleByScheduleState or EmptyState))``, or of a plain ``adam``'s
+    ``(ScaleByAdamState, EmptyState)``.  The schedule's count equals the
     Adam count, which the port's schedule reads."""
     found = []
 

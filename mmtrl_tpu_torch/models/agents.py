@@ -1,10 +1,10 @@
-"""Recurrent actor-critic agents; port of ``MultimodalRecurrentAgent`` and
-``RecurrentAgent`` of ``mmtrl_tpu/models/agents.py``.
+"""Actor-critic agents; port of ``MultimodalRecurrentAgent``,
+``RecurrentAgent`` and ``CNNAgent`` of ``mmtrl_tpu/models/agents.py``.
 
-One call takes a whole (T, B, ...) window: the rollout passes T = 1, the PPO
-update the full ``num_steps`` sequence.  The towers run on all T x B frames
-at once; the attention / fusion / LSTM recurrence runs as a Python loop over
-T where JAX has ``nn.scan``.  Submodules are named as the flax tree nests
+One call of a recurrent agent takes a whole (T, B, ...) window: the
+rollout passes T = 1, the PPO update the full ``num_steps`` sequence.  The
+towers run on all T x B frames at once; the attention / fusion / LSTM
+recurrence runs as a Python loop over T where JAX has ``nn.scan``.  Submodules are named as the flax tree nests
 them (``video_net``, ``audio_net``, ``core.attn``, ``core.lstm``,
 ``actor``, ``critic``; ``network`` for the single tower), so
 ``convert.agent_params_from_flax`` loads a JAX agent with ``strict=True``.
@@ -153,3 +153,24 @@ class RecurrentAgent(_Heads):
         feat = self.network(flat).reshape(T, B, -1)
         carry, hidden = _scan(self.core, carry, (feat, done))
         return self.actor(hidden), self.critic(hidden)[..., 0], carry
+
+
+class CNNAgent(nn.Module):
+    """Feed-forward CNN actor-critic over the full multi-channel observation,
+    the reference's minecraft_cnn.py Agent (no LSTM): obs (N, C, 84, 84) ->
+    logits (N, A), value (N,).  As in the JAX agent, the ``input_scale``
+    divide applies to both heads (minecraft_cnn.py:142 omits it for the
+    policy, a bug not replicated)."""
+
+    def __init__(self, num_actions: int, conv_type: str = "big", input_scale: float = 255.0,
+                 in_channels: int = 2, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.input_scale = input_scale
+        self.network = AtariTower(conv_type, in_channels, device=device)
+        self.actor = Dense(self.network.feature_size, num_actions, scale=0.01, device=device)
+        self.critic = Dense(self.network.feature_size, 1, scale=1.0, device=device)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        feat = self.network(obs / self.input_scale)
+        return self.actor(feat), self.critic(feat)[..., 0]

@@ -8,9 +8,13 @@ moments ``mu`` and ``nu``, one float32 tensor per parameter.  The arithmetic
 follows the JAX transform term for term:
 
 - the clip scale is 1 when the global norm is below ``max_grad_norm``, else
-  ``max_grad_norm / norm``;
+  ``max_grad_norm / norm``; ``max_grad_norm=None`` does not clip (plain
+  ``optax.adamw``, or ``optax.adam`` with ``weight_decay=0``);
 - the learning rate is read at the count before the increment, the bias
   corrections ``1 - b**count`` at the count after it, in float32;
+- the global norm and the bias corrections take float32, or the
+  parameters' dtype where it is wider: a float64 update rounds nothing to
+  float32 (float64 checks hold two devices' updates to each other);
 - eps goes outside the square root, and weight decay applies to every
   parameter, biases, LayerNorm scales and embeddings included;
 - each update is cast to its parameter's dtype and added to it.
@@ -20,7 +24,7 @@ Unlike JAX, which returns new arrays, the parameters are updated in place.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -43,9 +47,14 @@ def init_adam_state(params: Sequence[torch.Tensor]) -> ScaleByAdamState:
     )
 
 
+def _at_least_float32(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, as ``optax.global_norm``."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    wide = [t.to(_at_least_float32(t.dtype)) for t in tensors]
+    return torch.sqrt(sum((t * t).sum() for t in wide))
 
 
 @torch.no_grad()
@@ -58,17 +67,21 @@ def fused_clip_adamw(
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 1e-4,
-    max_grad_norm: float = 0.25,
+    max_grad_norm: Optional[float] = 0.25,
 ) -> ScaleByAdamState:
     """One clipped AdamW step: updates ``params`` in place and returns the
     next state.  ``learning_rate`` is a float or a schedule of the count."""
-    g_norm = global_norm(grads)
-    scale = torch.where(g_norm < max_grad_norm, 1.0, max_grad_norm / g_norm)
+    if max_grad_norm is None:
+        scale = 1.0
+    else:
+        g_norm = global_norm(grads)
+        scale = torch.where(g_norm < max_grad_norm, 1.0, max_grad_norm / g_norm)
     count = torch.where(state.count < INT32_MAX, state.count + 1, state.count)
     lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
-    exponent = count.float()
-    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=count.device) ** exponent
-    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=count.device) ** exponent
+    dtype = _at_least_float32(params[0].dtype)
+    exponent = count.to(dtype)
+    c1 = 1.0 - torch.tensor(b1, dtype=dtype, device=count.device) ** exponent
+    c2 = 1.0 - torch.tensor(b2, dtype=dtype, device=count.device) ** exponent
     mu_out, nu_out = [], []
     for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
         g = g * scale

@@ -1,0 +1,53 @@
+"""Trained-policy evaluation, the reference's cleanrl_utils/evals role;
+port of ``evaluate_policy`` of ``mmtrl_tpu/utils/evaluate.py``.
+
+Runs a policy greedily (or sampling) in the batched env on the model's
+device for a fixed number of steps and reports episode statistics.  Works
+with feedforward ``model(obs) -> (logits, value, ...)`` and recurrent
+``model(obs[T, B], done[T, B], carry) -> (logits, value, carry)`` agents.
+One ``torch.Generator`` drives the reset draws and, when sampling, the
+actions.  ``evaluate_actions`` (the off-policy zoo's action rules) waits
+for that zoo (ROADMAP A.6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from mmtrl_tpu_torch.core.metrics import EpisodeStatistics
+from mmtrl_tpu_torch.envs.base import Environment
+from mmtrl_tpu_torch.models.distributions import categorical_sample
+
+
+@torch.no_grad()
+def evaluate_policy(
+    env: Environment,
+    model: nn.Module,
+    generator: torch.Generator,
+    num_envs: int = 16,
+    num_steps: int = 256,
+    greedy: bool = True,
+    recurrent: bool = False,
+    initial_carry: Optional[Any] = None,
+) -> Dict[str, torch.Tensor]:
+    obs, env_state = env.reset(num_envs, generator)
+    done = torch.zeros(num_envs, dtype=torch.bool, device=obs.device)
+    stats = EpisodeStatistics.create(num_envs, obs.device)
+    carry = initial_carry
+    for _ in range(num_steps):
+        if recurrent:
+            logits, _, carry = model(obs[None], done[None], carry)
+            logits = logits[0]
+        else:
+            logits = model(obs)[0]
+        action = logits.argmax(dim=-1) if greedy else categorical_sample(generator, logits)
+        obs, env_state, reward, done, _ = env.step(env_state, action, generator)
+        stats = stats.update(reward, done)
+    return {
+        "eval/episodic_return": stats.mean_return,
+        "eval/episodic_length": stats.mean_length,
+        "eval/episodes": stats.episode_count,
+    }

@@ -251,3 +251,56 @@ def test_tiny_ppo_run_on_the_card(tmp_path, monkeypatch):
         "--num-minibatches", "2", "--update-epochs", "2", "--total-timesteps", "96",
         "--load-from", ckpt]))
     assert resumed["initial_update"] == 3 and len(resumed["history"]) == 1
+
+
+def _ppo_family_agent(name, device):
+    from mmtrl_tpu_torch.algos.ppo.ppg import PPGAgent
+    from mmtrl_tpu_torch.algos.ppo.rnd import RNDAgent, RNDNetwork
+    from mmtrl_tpu_torch.models.agents import CNNAgent
+    from mmtrl_tpu_torch.scripts.minecraft_lstm_google import GoogleAgent
+
+    shape = (2, 84, 84)
+    return {
+        "cnn": lambda: CNNAgent(4, "small", input_scale=1.0, device=device),
+        "google": lambda: GoogleAgent(4, 0.5, input_scale=1.0, device=device),
+        "rnd": lambda: RNDAgent(4, shape, device=device),
+        "rnd_target": lambda: RNDNetwork(shape, device=device),
+        "rnd_predictor": lambda: RNDNetwork(shape, predictor=True, device=device),
+        "ppg": lambda: PPGAgent(4, shape, device=device),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cnn", "google", "rnd", "rnd_target", "rnd_predictor", "ppg"])
+def test_ppo_family_agent_on_the_card_matches_the_cpu(name):
+    """The feedforward, google, RND and PPG agents in float32 (no TF32) on
+    the card against the same weights on the CPU: every output within 1e-5
+    of its largest magnitude (convs summed in other orders; the google
+    agent's LSTM carries them through 4 steps)."""
+    _need_gpu()
+    torch.manual_seed(0)
+    card = _ppo_family_agent(name, "cuda")
+    cpu = _ppo_family_agent(name, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    obs = torch.rand(4, 3, 2, 84, 84, generator=g) * 2 - 1
+    if name == "google":
+        done = torch.zeros(4, 3, dtype=torch.bool)
+        done[2, 1] = True
+        carry = tuple(torch.randn(3, 128, generator=g) * 0.5 for _ in range(2))
+        args = (obs, done, carry)
+    else:
+        args = (obs.reshape(12, 2, 84, 84),)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            out = card(*[a.cuda() if torch.is_tensor(a) else tuple(c.cuda() for c in a)
+                         for a in args])
+            ref = cpu(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    flat = lambda t: [x for o in (t if isinstance(t, tuple) else (t,))  # noqa: E731
+                      for x in (o if isinstance(o, tuple) else (o,))]
+    for o, r in zip(flat(out), flat(ref), strict=True):
+        assert (o.cpu() - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1e-6)

@@ -83,3 +83,29 @@ def test_weight_decay_reaches_every_parameter_and_updates_in_place():
     for p in params:
         torch.testing.assert_close(p, torch.full_like(p, 1 - 0.5 * 0.1), rtol=0, atol=1e-7)
     assert [id(p) for p in params] == ids and int(state.count) == 1
+
+
+def test_a_float64_step_rounds_nothing_to_float32():
+    """Clip norm and bias corrections in float64 for float64 parameters:
+    three clipped steps equal optax's chain run in float64 on numpy, to
+    float64 rounding (a float32 norm or bias correction is 1e-8 off)."""
+    rng = np.random.RandomState(3)
+    params = [torch.from_numpy(rng.randn(*s)) for s in SHAPES.values()]
+    ref = [p.numpy().copy() for p in params]
+    state = init_adam_state(params)
+    mu, nu = [np.zeros_like(p) for p in ref], [np.zeros_like(p) for p in ref]
+    lr, b1, b2, eps, wd, clip = 1e-3, 0.9, 0.999, 1e-5, 0.01, 0.5
+    for step in range(1, 4):
+        grads = [rng.randn(*p.shape) for p in ref]
+        state = fused_clip_adamw(params, [torch.from_numpy(g) for g in grads], state, lr,
+                                 b1=b1, b2=b2, eps=eps, weight_decay=wd, max_grad_norm=clip)
+        norm = np.sqrt(sum((g * g).sum() for g in grads))
+        scale = 1.0 if norm < clip else clip / norm
+        for i, g in enumerate(grads):
+            mu[i] = b1 * mu[i] + (1 - b1) * g * scale
+            nu[i] = b2 * nu[i] + (1 - b2) * (g * scale) ** 2
+            upd = (mu[i] / (1 - b1**step)) / (np.sqrt(nu[i] / (1 - b2**step)) + eps)
+            ref[i] = ref[i] - lr * (upd + wd * ref[i])
+    for p, r in zip(params, ref):
+        assert p.dtype == torch.float64
+        np.testing.assert_allclose(p.numpy(), r, rtol=0, atol=1e-14)

@@ -1,8 +1,11 @@
 """The port's entry scripts on the CPU (``--cuda False``, tiny budgets):
-the three PPO twins end to end, their flags against the JAX scripts',
-checkpoints (crash-safe overwrite, ``--load-from`` resume continuing the
-update counter and the generator stream), the DT twin collecting with a
-port PPO checkpoint, and the event files read back by TensorBoard."""
+the PPO twins end to end (recurrent, feedforward CNN, google LSTM, RND and
+PPG), their flags against the JAX scripts', checkpoints (crash-safe
+overwrite, ``--load-from`` resume continuing the update counter and the
+generator stream, for PPO and for RND), the evaluate twin on PPO
+checkpoints, the branches that wait for later ports, the DT twin collecting
+with a port PPO checkpoint, and the event files read back by
+TensorBoard."""
 
 import dataclasses
 import importlib.util
@@ -19,7 +22,17 @@ from mmtrl_tpu_torch.core import checkpoint
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs import make
-from mmtrl_tpu_torch.scripts import dt_minecraft, minecraft_lstm, minecraft_lstm_attention, train
+from mmtrl_tpu_torch.scripts import (
+    dt_minecraft,
+    evaluate,
+    minecraft_cnn,
+    minecraft_lstm,
+    minecraft_lstm_attention,
+    minecraft_lstm_google,
+    ppg,
+    ppo_rnd,
+    train,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 # 2 envs x 4 steps a rollout, one minibatch, one epoch, small towers
@@ -77,6 +90,122 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
         dt_minecraft.main(cli(dt_minecraft.Args, ["--total-steps", "1"]))
 
 
+# ---- the feedforward, google, RND and PPG twins and evaluate -----------------
+PPO_METRICS = set(LOSSES)
+FAMILY = {
+    # script: (argv, metrics each update logs)
+    "minecraft_cnn": (["--conv-size", "small", "--num-envs", "2", "--num-steps", "8",
+                       "--num-minibatches", "2", "--update-epochs", "2",
+                       "--total-timesteps", "32"], PPO_METRICS),
+    "minecraft_lstm_google": (["--num-steps", "4", "--total-timesteps", "8"], PPO_METRICS),
+    "ppo_rnd": (["--num-envs", "2", "--num-steps", "8", "--num-minibatches", "2",
+                 "--update-epochs", "2", "--total-timesteps", "32"],
+                {"losses/policy_loss", "losses/value_loss", "losses/fwd_loss", "losses/entropy",
+                 "charts/mean_int_reward"}),
+    "ppg": (["--num-envs", "2", "--num-steps", "4", "--num-minibatches", "2", "--n-iteration",
+             "2", "--e-auxiliary", "2", "--num-aux-minibatches", "2", "--total-timesteps", "32"],
+            PPO_METRICS - {"losses/explained_variance"}
+            | {"losses/aux_value_loss", "losses/kl_clone"}),
+}
+SCRIPTS = {"minecraft_cnn": minecraft_cnn, "minecraft_lstm_google": minecraft_lstm_google,
+           "ppo_rnd": ppo_rnd, "ppg": ppg}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY))
+def test_ppo_family_twin_runs_end_to_end(name, in_tmp):
+    """Two updates (for PPG two cycles of two rollouts) through ``main``,
+    a checkpoint, and every metric in TensorBoard at the env steps."""
+    argv, metrics = FAMILY[name]
+    script = SCRIPTS[name]
+    out = script.main(cli(script.Args, ["--cuda", "False", "--save-interval", "2"] + argv))
+    steps = out["global_step"] // 2
+    assert [r["update"] for r in out["history"]] == [1, 2] and out["global_step"] == 2 * steps
+    for row in out["history"]:
+        assert metrics <= set(row)
+        assert all(math.isfinite(row[k]) for k in metrics if k != "losses/explained_variance")
+    tags = set(_events(in_tmp / "runs" / out["run_name"]).Tags()["scalars"])
+    assert {"charts/episodic_return", "charts/learning_rate", *metrics} <= tags
+    payload = checkpoint.load_run(str(in_tmp / "saved_agents" / out["run_name"]))
+    assert int(payload["opt_state"]["count"]) == int(out["runner"].step)
+    assert isinstance(payload["generator"], torch.Tensor)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY) + ["evaluate"])
+def test_ppo_family_twin_raises_without_cuda(name, monkeypatch):
+    """Without ``--cuda False`` and without CUDA a twin raises; it never
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = evaluate if name == "evaluate" else SCRIPTS[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(cli(module.Args, ["--load-from", "x"] if name == "evaluate" else []))
+
+
+def test_evaluate_reads_cnn_and_recurrent_checkpoints(in_tmp):
+    cnn = minecraft_cnn.main(cli(minecraft_cnn.Args, [
+        "--cuda", "False", "--conv-size", "small", "--num-envs", "2", "--num-steps", "4",
+        "--num-minibatches", "1", "--update-epochs", "1", "--total-timesteps", "8",
+        "--save-interval", "1"]))
+    rec = train.main(cli(train.Args, TINY_PPO + ["--attn-type", "casl", "--total-timesteps", "8",
+                                                 "--save-interval", "1"]))
+    for script, run, extra in (("minecraft_cnn", cnn, []), ("train", rec, ["--attn-type", "casl"])):
+        argv = ["--cuda", "False", "--script", script, "--conv-size", "small", "--load-from",
+                str(in_tmp / "saved_agents" / run["run_name"]), "--num-envs", "3",
+                "--num-steps", "64"] + extra
+        out = evaluate.main(cli(evaluate.Args, argv))
+        assert set(out) == {"eval/episodic_return", "eval/episodic_length", "eval/episodes"}
+        # every episode ends within 30 steps: 64 steps end at least 2 per env
+        assert out["eval/episodes"] >= 6 and 1.0 <= out["eval/episodic_length"] <= 30.0
+        assert out == evaluate.main(cli(evaluate.Args, argv))  # greedy and seeded
+        sampled = evaluate.main(cli(evaluate.Args, argv + ["--greedy", "False"]))
+        assert math.isfinite(sampled["eval/episodic_return"])
+    # the recurrent checkpoint is no CNN agent: strict state dicts
+    with pytest.raises(RuntimeError):
+        evaluate.main(cli(evaluate.Args, ["--cuda", "False", "--script", "minecraft_cnn",
+                                          "--conv-size", "small", "--load-from",
+                                          str(in_tmp / "saved_agents" / rec["run_name"])]))
+
+
+def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tmp):
+    """Update 3 after a resume equals update 3 of the uninterrupted run:
+    the agent, the predictor, the observation and reward statistics, the
+    forward filter and the generator all come back."""
+    argv = ["--cuda", "False", "--num-envs", "2", "--num-steps", "4", "--num-minibatches", "2",
+            "--update-epochs", "2", "--save-dir", "ck", "--anneal-lr", "False"]
+    whole = ppo_rnd.main(cli(ppo_rnd.Args, argv + ["--total-timesteps", "24"]))
+    first = ppo_rnd.main(cli(ppo_rnd.Args, argv + ["--total-timesteps", "16",
+                                                   "--save-interval", "2"]))
+    ckpt = str(in_tmp / "ck" / first["run_name"])
+    payload = checkpoint.load_run(ckpt)
+    assert int(payload["opt_state"]["count"]) == int(payload["predictor_opt_state"]["count"]) == 8
+    assert set(payload) >= {"predictor", "target", "obs_stat", "reward_stat", "forward_filter"}
+    resumed = ppo_rnd.main(cli(ppo_rnd.Args, argv + ["--total-timesteps", "24",
+                                                     "--load-from", ckpt]))
+    assert resumed["initial_update"] == 3 and [r["update"] for r in resumed["history"]] == [3]
+    a, b = whole["runner"], resumed["runner"]
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    for module in ("model", "predictor", "target"):
+        for (name, p), q in zip(getattr(a, module).named_parameters(),
+                                getattr(b, module).parameters()):
+            assert torch.equal(p, q), f"{module}.{name}"
+    for stat in ("obs_stat", "reward_stat"):
+        assert all(torch.equal(getattr(getattr(a, stat), f), getattr(getattr(b, stat), f))
+                   for f in ("mean", "var", "count"))
+    assert torch.equal(a.forward_filter, b.forward_filter)
+    assert resumed["history"][0]["losses/fwd_loss"] == whole["history"][2]["losses/fwd_loss"]
+
+
+@pytest.mark.parametrize("module,argv,item", [
+    (ppg, ["--env-id", "procmaze"], "A.7"),
+    (evaluate, ["--script", "ppo"], "A.6"),
+    (evaluate, ["--script", "skeleton_plus_ppo"], "A.7"),
+    (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
+])
+def test_unported_branches_name_their_roadmap_item(module, argv, item, in_tmp):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        module.main(cli(module.Args, ["--cuda", "False", "--load-from", "x"] + argv
+                        if module is evaluate else ["--cuda", "False"] + argv))
+
+
 def _jax_script(name):
     """A JAX script module, imported as its directory's siblings import it."""
     sys.path.insert(0, str(REPO / "scripts"))
@@ -96,6 +225,12 @@ def _jax_script(name):
     ("minecraft_lstm", ["--agent", "old", "--clip-rewards", "0", "--conv-size", "small"]),
     ("dt_minecraft", ["--policy-from", "ck", "--d-model", "64", "--eval-greedy", "no",
                       "--remat", "--rtg-clip", "5"]),
+    ("minecraft_cnn", ["--conv-size", "small", "--input-scale", "1", "--num-envs", "8"]),
+    ("minecraft_lstm_google", ["--policy-offset", "0", "--num-steps", "64"]),
+    ("ppo_rnd", ["--int-coef", "0.5", "--update-proportion", "0.5", "--clip-rewards", "no"]),
+    ("ppg", ["--n-iteration", "4", "--e-auxiliary", "3", "--aux-store-dtype", "float32"]),
+    ("evaluate", ["--script", "minecraft_cnn", "--load-from", "ck", "--greedy", "false",
+                  "--num-envs", "4"]),
 ])
 def test_cli_matches_the_jax_cli(name, argv, monkeypatch):
     monkeypatch.setenv("MMTRL_NO_COMPILE_CACHE", "1")  # the JAX cli's own cache
