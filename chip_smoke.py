@@ -57,11 +57,25 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 checkpoints; and in a child process an RND ``--load-from``
                 resume equal to update 4 in memory bit for bit, then one
                 profiled update of each path.
-9. timing    -- each kernel, its plain version and the PyTorch call that
+9. rom       -- the cartridge path: the native 2600 library built with g++
+                (beside nvcc, in phase 1); ``rally_native`` at 32 envs for 300
+                pool steps, ``_obs`` on the card against the CPU; ``rally_ppo``
+                at its defaults (32 envs x 128 steps, 4 x 4 minibatches, big
+                towers, casl) for two updates with a save and one resumed
+                update with a greedy evaluation; ``dt_rom --policy-from`` that
+                checkpoint at full width with 4 experts, top-2, under the
+                dense and the gather dispatch (collect 4,096 transitions, 30
+                train steps, 300 evaluation pool steps; 6 launches of each
+                kernel a train step and 6 forward launches an evaluation pool
+                step); one full-width MoE Block forward and backward card vs
+                CPU under each dispatch; train steps of the dense-FFN, MoE
+                dense and MoE gather DTs timed at dt_rom's shape; one
+                ``brick_ppo`` update.
+10. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
-                serving, training and long-context shapes, beside the bound
-                from bytes and FLOPs.
+                serving, training, dt_rom training and long-context shapes,
+                beside the bound from bytes and FLOPs.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1
@@ -87,6 +101,7 @@ KERNEL_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
 SERVE_SHAPE = (16, 4, 90, 128)  # (B, H, S, D) of every attention call in serve
 TRAIN_SHAPE = (128, 4, 90, 128)  # ... in a bench.py train step (B = 128)
 LONG_SHAPE = (16, 4, 1026, 128)  # the long-context DT, K = 342
+ROM_TRAIN_SHAPE = (64, 4, 90, 128)  # ... in a dt_rom train step (B = 64); its eval is SERVE_SHAPE
 # (shape, dtype, forward (block_q, block_k), backward (block_q, block_k));
 # (0, 0) is each kernel's default, which the model uses.  The bf16 kernels
 # (tensor cores) have the one tile (64, 64); the float32 CUDA-core kernels
@@ -1383,6 +1398,262 @@ def family_child(rnd_ckpt: str, result: str, *ckpts: str) -> None:
     torch.save(out, result)
 
 
+# The cartridge path (ROADMAP A.5 and A.7's cartridge half): RALLY and BRICK
+# on the native 2600 core, the host-loop PPO and the MoE DT through
+# dt_rom.py, at the entry points' widths.
+ROM_ENVS = 32  # rally_ppo's default pool
+ROM_OBS_STEPS = 300  # pool steps of the observation check
+ROM_OBS_EVERY = 25  # ... of which every 25th is made on the CPU as well
+# The observation, card against CPU: cuFFT and pocketfft sum the spectrum in
+# other orders, the log and the DCT carry that to the cepstra (values up to
+# about 40, float32 steps of 4e-6), and the per-window min-max divides by the
+# plane's range; a few float32 steps of each plane's range, in [-1, 1].
+ROM_OBS_ATOL = 1e-4
+# rally_ppo at its defaults: 32 envs x 128 steps, 4 epochs x 4 minibatches,
+# big towers, casl, sum fusion.  Two updates and a save, then one resumed.
+ROM_PPO_ARGS = ["--eval-steps", "0", "--save-interval", "2"]
+ROM_PPO_UPDATE = 32 * 128  # env steps an update
+# dt_rom at full width (d_model 512, 6 layers, 4 heads, K = 30, batch 64) with
+# E = 4 experts, top-2 (tools/bench_moe_dispatch.py:44-50): 4,096 transitions
+# from the PPO checkpoint, 30 train steps, then max(episode cap + 100,
+# eval steps / envs) = 300 pool steps of evaluation.
+ROM_DT_ARGS = ["--env-id", "rally_native", "--policy-conv-size", "big",
+               "--collect-envs", "16", "--collect-steps", "4096", "--episode-steps", "200",
+               "--total-steps", "30", "--steps-per-dispatch", "10", "--print-interval", "10",
+               "--warmup-steps", "10", "--eval-steps", "0", "--target-return", "5",
+               "--moe-experts", "4", "--moe-top-k", "2"]
+ROM_DT_CFG = dict(num_actions=6, context_len=30, d_model=512, n_layers=6, n_heads=4,
+                  max_timestep=2048)
+# One MoE Block forward and backward, card against CPU, float32 with TF32 off
+# and dropout 0: the same routing on both sides (a logit gap near 1e-6 would
+# flip a choice; at 5,760 tokens the smallest gaps are some 1e-4), so the
+# outputs and gradients differ by float32 summation order only.
+ROM_BLOCK_TOL_OF_MAX = 1e-4
+ROM_TIMED_STEPS = 10
+
+
+def native_build_in_background():
+    """A started thread that builds the native 2600 library (g++, some 10 s)
+    while nvcc builds the kernels; ``.error`` holds what it raised."""
+    import threading
+
+    from mmtrl_tpu_torch.envs.skeleton_native import build_native
+
+    class Build(threading.Thread):
+        error = None
+
+        def run(self):
+            try:
+                t0 = time.perf_counter()
+                path = build_native()
+                emit("build", library=str(path.name), seconds=time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001  re-raised by the caller's check
+                self.error = e
+
+    thread = Build()
+    thread.start()
+    return thread
+
+
+def phase_rom(smi: str, tmp: str):
+    """(a) RALLY observations card vs CPU, (b) rally_ppo with a save and a
+    resume, (c) dt_rom with MoE under both dispatches, the MoE Block card vs
+    CPU and train steps of the dense-FFN and MoE DTs timed, (d) brick_ppo;
+    runs and checkpoints go under ``tmp``.  Returns the kernel launches of
+    the two dt_rom runs."""
+    return restoring_flags(rom_checks, smi, tmp)
+
+
+def rom_observations(smi: str):
+    """(a): ``rally_native`` at 32 envs for 300 pool steps of seeded random
+    actions; ``_obs`` on the card against the CPU every 25th step; the
+    emulator's and the observation's ms a pool step."""
+    import numpy as np
+
+    from mmtrl_tpu_torch.data.quant import dequant_audio_u8, quant_audio_u8
+    from mmtrl_tpu_torch.envs.homebrew_native import NativeHomebrew
+
+    env = NativeHomebrew(ROM_ENVS, seed=SEED)
+    cpu_env = NativeHomebrew(ROM_ENVS, seed=SEED, device="cpu")  # for its _obs
+    rng = np.random.default_rng(SEED)
+    try:
+        frames, audio = env._host_reset()
+        worst, host_s, obs_s, rewards, dones = 0.0, 0.0, 0.0, 0.0, 0
+        for t in range(ROM_OBS_STEPS):
+            code = quant_audio_u8(audio)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obs = env._obs(frames, dequant_audio_u8(torch.from_numpy(code).cuda()))
+            torch.cuda.synchronize()
+            obs_s += time.perf_counter() - t0
+            check(obs.shape == (ROM_ENVS, 3, 84, 84) and bool(torch.isfinite(obs).all()),
+                  f"observation {tuple(obs.shape)} not finite")
+            if t % ROM_OBS_EVERY == 0:
+                ref = cpu_env._obs(frames, dequant_audio_u8(torch.from_numpy(code)))
+                worst = max(worst, (obs.cpu() - ref).abs().max().item())
+            t0 = time.perf_counter()
+            frames, audio, kd, ld, done, win, _, _ = env._host_step(
+                rng.integers(0, env.num_actions, ROM_ENVS).astype(np.int32))
+            host_s += time.perf_counter() - t0
+            rewards += float(env._reward(kd, ld, win).sum())
+            dones += int(done.sum())
+    finally:
+        env.close()
+        cpu_env.close()
+    emit("rom_obs", env="rally_native", num_envs=ROM_ENVS, pool_steps=ROM_OBS_STEPS,
+         checked_steps=len(range(0, ROM_OBS_STEPS, ROM_OBS_EVERY)), max_abs_err_obs=worst,
+         tol=ROM_OBS_ATOL, emulator_ms_per_pool_step=1e3 * host_s / ROM_OBS_STEPS,
+         obs_ms_per_pool_step=1e3 * obs_s / ROM_OBS_STEPS, reward_sum=rewards,
+         episodes_ended=dones, card=smi, ok=worst <= ROM_OBS_ATOL)
+    check(worst <= ROM_OBS_ATOL, f"RALLY observation card vs CPU {worst}")
+
+
+def moe_block_check(dispatch: str):
+    """One full-width MoE Block forward and backward, card against CPU."""
+    from mmtrl_tpu_torch.models.decision_transformer import Block, DTConfig
+
+    cfg = DTConfig(**ROM_DT_CFG, dropout=0.0, compute_dtype="float32", moe_experts=4,
+                   moe_top_k=2, moe_dispatch=dispatch)
+    torch.manual_seed(SEED)
+    block = Block(cfg, torch.device("cuda"))
+    cpu_block = Block(cfg, torch.device("cpu"))
+    cpu_block.load_state_dict(block.state_dict())
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(64, 3 * cfg.context_len, cfg.d_model, generator=g)
+    w = torch.randn(x.shape, generator=g)
+    sides = []
+    reset_counts()
+    for m, dev in ((block, "cuda"), (cpu_block, "cpu")):
+        xi = x.to(dev).requires_grad_()
+        y, aux = m(xi)
+        loss = (y * w.to(dev)).sum() + aux
+        grads = torch.autograd.grad(loss, [xi] + list(m.parameters()))
+        sides.append((y.detach().cpu(), aux.item(), [gr.cpu() for gr in grads]))
+    counts = read_counts()
+    (y_c, aux_c, g_c), (y_r, aux_r, g_r) = sides
+    errs = {"y": (y_c - y_r).abs().max().item() / y_r.abs().max().item(),
+            "aux": abs(aux_c - aux_r) / abs(aux_r)}
+    names = ["x"] + [n for n, _ in block.named_parameters()]
+    for name, a, b in zip(names, g_c, g_r):
+        errs[f"grad {name}"] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    worst = max(errs, key=errs.get)
+    ok = all(math.isfinite(e) and e <= ROM_BLOCK_TOL_OF_MAX for e in errs.values())
+    emit("rom_moe_block", dispatch=dispatch, compute_dtype="float32", tokens=x.shape[0] * x.shape[1],
+         worst=worst, worst_err_of_max=errs[worst], err_y=errs["y"], err_aux=errs["aux"],
+         aux_card=aux_c, tol_of_max=ROM_BLOCK_TOL_OF_MAX, launches=counts, ok=ok)
+    check(ok, f"MoE block ({dispatch}) card vs CPU: {worst} {errs[worst]}")
+    check(counts["flash_fwd"] == 1 and counts["flash_dq"] == 1 and counts["flash_dkv"] == 1,
+          f"MoE block launches {counts}")
+
+
+def dt_step_timing(smi: str, label: str, **moe):
+    """ms a train step and tokens/s of the full-width DT at dt_rom's shape
+    (B = 64, K = 30, 3 x 84 x 84 states, 6 actions) on a random buffer."""
+    from mmtrl_tpu_torch.algos.dt import DTTrainConfig, create_dt_state, make_dt_train_step
+    from mmtrl_tpu_torch.algos.dt.data import random_buffer
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+
+    B, K = 64, 30
+    cfg = DTConfig(**ROM_DT_CFG, **moe)
+    buffer = random_buffer(16, 1024, torch.Generator(device="cuda").manual_seed(SEED),
+                           state_shape=(3, 84, 84), num_actions=6)
+    state = create_dt_state(cfg, DTTrainConfig(batch_size=B, total_steps=1000), seed=SEED,
+                            state_channels=3)
+    step = make_dt_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.manual_seed(SEED)
+    for _ in range(3):
+        state, metrics = step(state, buffer.sample(gen, B, K))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ROM_TIMED_STEPS):
+        state, metrics = step(state, buffer.sample(gen, B, K))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / ROM_TIMED_STEPS
+    (state, metrics), wall, ops, busy, top = device_profile(
+        lambda: step(state, buffer.sample(gen, B, K)))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    n_params = sum(p.numel() for p in state.model.parameters())
+    emit("rom_dt_step", model=label, batch_size=B, context_len=K, params=n_params,
+         step_ms=1e3 * step_s, tokens_per_s=B * 3 * K / step_s, steps_timed=ROM_TIMED_STEPS,
+         profiled_step_ms=1e3 * wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:4], card=smi,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **metrics)
+    check(all(math.isfinite(v) for v in metrics.values()), f"{label}: non-finite metrics")
+
+
+def rom_checks(smi: str, tmp: str):
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import brick_ppo, dt_rom, rally_ppo
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    save_dir = os.path.join(tmp, "saved_agents")
+    rom_observations(smi)
+
+    # (b) rally_ppo: two updates with a save, then one resumed update
+    def ppo_row(out, what):
+        for r in out["history"]:
+            emit("rom_ppo", run=what, update=r["update"], wall_s=r["wall_s"],
+                 rollout_s=r["rollout_s"], update_s=r["update_s"], emulator_s=r["emulator_s"],
+                 sps=r["sps"], env_steps_per_s=ROM_PPO_UPDATE / r["wall_s"],
+                 episodic_return=r["episodic_return"], value_loss=r["losses/value_loss"],
+                 max_memory_gb=r.get("max_memory_gb"), card=smi)
+            check(all(math.isfinite(r[k]) for k in ("losses/policy_loss", "losses/value_loss",
+                                                     "losses/entropy")),
+                  f"{what}: non-finite losses in update {r['update']}")
+
+    args = ROM_PPO_ARGS + ["--save-dir", save_dir]
+    first = rally_ppo.main(cli(rally_ppo.Args, args + ["--total-timesteps",
+                                                       str(2 * ROM_PPO_UPDATE)]))
+    ppo_row(first, "rally_ppo")
+    ckpt = os.path.join(save_dir, first["run_name"])
+    resumed = rally_ppo.main(cli(rally_ppo.Args, [
+        "--eval-steps", "200", "--load-from", ckpt, "--total-timesteps",
+        str(3 * ROM_PPO_UPDATE)]))
+    ppo_row(resumed, "rally_ppo --load-from")
+    check(resumed["initial_update"] == 3 and [r["update"] for r in resumed["history"]] == [3],
+          f"resume ran updates {[r['update'] for r in resumed['history']]}")
+    emit("rom_ppo_eval", eval_steps=200, **{k: resumed.get(k) for k in
+                                            ("eval_episodic_return", "eval_episodes")})
+
+    # (c) the MoE DT through dt_rom, under both dispatches
+    launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for dispatch in ("dense", "gather"):
+        argv = ROM_DT_ARGS + ["--policy-from", ckpt, "--moe-dispatch", dispatch]
+        reset_counts()
+        out = dt_rom.main(cli(dt_rom.Args, argv))
+        counts = read_counts()
+        layers, steps, pool = 6, out["train_steps"], out["eval_pool_steps"]
+        expected = {"flash_fwd": layers * (steps + pool), "flash_dq": layers * steps,
+                    "flash_dkv": layers * steps}
+        emit("rom_dt", dispatch=dispatch, collect_s=out["collect_s"], train_s=out["train_s"],
+             eval_s=out["eval_s"], train_steps=steps, eval_pool_steps=pool,
+             tokens_per_s=out["tokens_per_s"], loss=out["dt/loss"], moe_aux=out["dt/moe_aux"],
+             behavior_return=out["behavior/episodic_return"],
+             behavior_episodes=out["behavior/episodes"],
+             eval_return=out["eval/episodic_return"], eval_episodes=out["eval/episodes"],
+             launches=counts, expected_launches=expected, card=smi)
+        check(counts == expected, f"dt_rom {dispatch}: launches {counts}, expected {expected}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        check(math.isfinite(out["dt/loss"]) and math.isfinite(out["dt/moe_aux"]),
+              f"dt_rom {dispatch}: loss {out['dt/loss']} aux {out['dt/moe_aux']}")
+        check(out["eval/episodes"] >= 16, f"dt_rom {dispatch}: {out['eval/episodes']} episodes")
+        moe_block_check(dispatch)
+    dt_step_timing(smi, "dense FFN")
+    for dispatch in ("dense", "gather"):
+        dt_step_timing(smi, f"MoE {dispatch}", moe_experts=4, moe_top_k=2, moe_dispatch=dispatch)
+
+    # (d) brick_ppo, one update, profiled (rollout and update)
+    brick, wall, ops, busy, top = device_profile(lambda: brick_ppo.main(cli(brick_ppo.Args, [
+        "--eval-steps", "0", "--total-timesteps", str(ROM_PPO_UPDATE)])))
+    ppo_row(brick, "brick_ppo")
+    emit("rom_ppo_profile", run="brick_ppo", wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:4], card=smi)
+    return launches
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -1390,7 +1661,7 @@ def phase_timing(smi: str):
 
     rows = {}
     for label, shape, reps in (("serve", SERVE_SHAPE, 200), ("train", TRAIN_SHAPE, 100),
-                               ("long", LONG_SHAPE, 10)):
+                               ("rom_train", ROM_TRAIN_SHAPE, 100), ("long", LONG_SHAPE, 10)):
         dt = torch.bfloat16
         q, k, v, do = randn(shape, dt, SEED, 4)
         o, lse = fa.flash_attention_fwd(q, k, v)
@@ -1444,7 +1715,10 @@ def main() -> int:
         return 0
     smi = card()
     t_start = time.perf_counter()
+    native = native_build_in_background()
     phase_build()
+    native.join()
+    check(native.error is None, f"native 2600 library: {native.error}")
     errs = phase_kernel()
     phase_reference()
     phase_grad()
@@ -1453,6 +1727,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, ppo_ckpt = phase_ppo(smi, tmp)
         phase_ppo_family(smi, ppo_ckpt)
+        rom_launches = phase_rom(smi, tmp)
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -1465,6 +1740,10 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # the cartridge slice's shapes: dt_rom's train step (B = 64)
+            "rom_train": {k: timing[(name, "rom_train")][k]
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "rom_launches": rom_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,10 @@ the action predicted at each state token against the logged action, masked
 over left-padding; fused global-norm clipping and AdamW
 (``ops/fused_optim.py``) under optax's warmup-cosine schedule.  A step runs
 the model in ``train()`` mode, so dropout draws from the global torch RNG:
-seed it with ``torch.manual_seed``.  Attention goes through the CUDA
-forward and backward kernels on the card (``ops/flash_attention.py``).
+seed it with ``torch.manual_seed``.  With MoE blocks the loss adds
+``moe_aux_coef`` times the blocks' mean router load-balance loss, reported
+as ``dt/moe_aux``.  Attention goes through the CUDA forward and backward
+kernels on the card (``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
@@ -123,24 +125,31 @@ def dt_loss(
 
 def make_dt_train_step(model_cfg: DTConfig) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: forward in train
-    mode, masked NLL, backward, one fused clip-AdamW update in place.  The
-    metrics are device tensors keyed ``dt/loss`` and ``dt/action_accuracy``.
-    ``model_cfg`` is the JAX signature's; the state's model is what runs."""
+    mode, masked NLL (plus the MoE aux term), backward, one fused clip-AdamW
+    update in place.  The metrics are device tensors keyed ``dt/loss`` and
+    ``dt/action_accuracy``, and ``dt/moe_aux`` with MoE.  ``model_cfg`` is
+    the JAX signature's; the state's model and its config are what run."""
 
     def train_step(state: DTTrainState, batch: Batch) -> Tuple[DTTrainState, Dict]:
         rtg, states, actions, timesteps, mask = batch
         model, tcfg = state.model, state.train_cfg
         model.train()
         params: List[torch.Tensor] = list(model.parameters())
-        logits = model(rtg, states, actions, timesteps)
+        logits, moe_aux = model(rtg, states, actions, timesteps, return_aux=True)
         loss, acc = dt_loss(logits, actions, mask)
+        moe = bool(model.cfg.moe_experts)
+        if moe:
+            loss = loss + model.cfg.moe_aux_coef * moe_aux
         grads = torch.autograd.grad(loss, params)
         state.opt_state = fused_clip_adamw(
             params, grads, state.opt_state, state.schedule,
             b1=tcfg.beta1, b2=tcfg.beta2, weight_decay=tcfg.weight_decay,
             max_grad_norm=tcfg.max_grad_norm,
         )
-        return state, {"dt/loss": loss.detach(), "dt/action_accuracy": acc}
+        metrics = {"dt/loss": loss.detach(), "dt/action_accuracy": acc}
+        if moe:
+            metrics["dt/moe_aux"] = moe_aux.detach()
+        return state, metrics
 
     return train_step
 

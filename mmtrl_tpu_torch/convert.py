@@ -6,7 +6,9 @@ the ``state_dict`` key with its leaf renamed and, for kernels, transposed:
 - Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - Embed ``embedding`` -> ``weight``; LayerNorm ``scale`` -> ``weight``;
-- ``bias`` copies over.
+- ``bias`` copies over;
+- the MoE experts' stacked ``experts_w1/b1/w2/b2`` copy over unchanged:
+  the port stores the (E, D, F) and (E, F, D) layouts as flax does.
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, which
 checks that every name and shape lines up.  The same walk serves every
@@ -42,8 +44,8 @@ def _leaf(name: str, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim}")
     if name in ("embedding", "scale"):
         return "weight", value
-    if name == "bias":
-        return "bias", value
+    if name == "bias" or name.startswith("experts_"):
+        return name, value
     raise ValueError(f"unknown flax leaf {name!r}")
 
 

@@ -13,14 +13,19 @@ Parameters stay float32; ``compute_dtype`` is what the products run in and
 follows flax's arithmetic: float32 statistics, the variance as
 max(0, E[x^2] - E[x]^2), eps 1e-6.  Dropout is active in ``train()`` mode and
 draws from the global torch RNG, which ``torch.utils.checkpoint`` restores,
-so with ``remat`` the recomputed forward draws the same masks.  Dense FFN
-only: ``moe_experts > 0`` and ``seq_axis`` are not ported yet.
+so with ``remat`` the recomputed forward draws the same masks.  With
+``moe_experts > 0`` each block's FFN is the top-k MoE of ``models/moe.py``
+(module ``moe``); every block returns its router's load-balance loss beside
+its output, so a remat's recompute records nothing twice, and
+``forward(..., return_aux=True)`` gives their mean over the blocks, the
+``moe_aux`` that JAX sows.  ``seq_axis`` (sequence-parallel attention) is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mmtrl_tpu_torch import DeviceLike, resolve_device
 from mmtrl_tpu_torch.models.common import AtariTower, Dense
+from mmtrl_tpu_torch.models.moe import MoEFFN
 from mmtrl_tpu_torch.ops.flash_attention import causal_flash_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -150,15 +156,25 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(cfg.d_model, ln_dtype, device)
         self.attn = CausalSelfAttention(cfg, device)
         self.ln2 = LayerNorm(cfg.d_model, ln_dtype, device)
-        self.fc = Dense(cfg.d_model, cfg.mlp_ratio * cfg.d_model, 1.0, device=device)
-        self.proj = Dense(cfg.mlp_ratio * cfg.d_model, cfg.d_model, 1.0, device=device)
+        d_ff = cfg.mlp_ratio * cfg.d_model
+        if cfg.moe_experts:
+            self.moe = MoEFFN(cfg.d_model, d_ff, cfg.moe_experts, cfg.moe_top_k, self.dtype,
+                              cfg.moe_dispatch, device=device)
+        else:
+            self.fc = Dense(cfg.d_model, d_ff, 1.0, device=device)
+            self.proj = Dense(d_ff, cfg.d_model, 1.0, device=device)
         self.drop = nn.Dropout(cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(output, the MoE router's aux loss or None)."""
         x = x + self.attn(self.ln1(x).to(self.dtype))
         h = self.ln2(x).to(self.dtype)
-        h = self.proj(F.gelu(self.fc(h), approximate="tanh"))  # flax gelu is tanh
-        return x + self.drop(h)
+        aux = None
+        if hasattr(self, "moe"):
+            h, aux = self.moe(h)
+        else:
+            h = self.proj(F.gelu(self.fc(h), approximate="tanh"))  # flax gelu is tanh
+        return x + self.drop(h), aux
 
 
 class DecisionTransformer(nn.Module):
@@ -167,8 +183,6 @@ class DecisionTransformer(nn.Module):
 
     def __init__(self, cfg: DTConfig, device: DeviceLike = None, state_channels: int = 2):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE FFN (moe_experts > 0) is not ported yet")
         if cfg.seq_axis is not None:
             raise NotImplementedError("sequence-parallel attention is not ported yet")
         device = resolve_device(device)
@@ -199,9 +213,11 @@ class DecisionTransformer(nn.Module):
         states: torch.Tensor,  # (B, K, 2, 84, 84) or (B, K, state_dim)
         actions: torch.Tensor,  # (B, K) int
         timesteps: torch.Tensor,  # (B, K) int, absolute episode timesteps
-    ) -> torch.Tensor:
+        return_aux: bool = False,
+    ):
         """Action logits (B, K, num_actions) in float32, read from the
-        state-token outputs."""
+        state-token outputs; with ``return_aux``, (logits, the blocks' mean
+        MoE aux loss, 0 without MoE)."""
         cfg, dt = self.cfg, self.dtype
         B, K = rtg.shape
         if cfg.state_kind == "multimodal":
@@ -219,9 +235,15 @@ class DecisionTransformer(nn.Module):
         ).reshape(B, 3 * K, cfg.d_model)
         x = self.drop(tokens)
         remat = cfg.remat and self.training and torch.is_grad_enabled()
+        auxes = []
         for i in range(cfg.n_layers):
             block = getattr(self, f"block_{i}")
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            x, aux = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            if aux is not None:
+                auxes.append(aux)
         x = self.ln_f(x)
-        logits = self.action_head(x[:, 1::3].to(dt))  # state positions
-        return logits.float()
+        logits = self.action_head(x[:, 1::3].to(dt)).float()  # state positions
+        if not return_aux:
+            return logits
+        moe_aux = sum(auxes) / len(auxes) if auxes else logits.new_zeros(())
+        return logits, moe_aux

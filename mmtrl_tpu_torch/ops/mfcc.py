@@ -1,21 +1,25 @@
-"""MFCC image of a wav, numpy only; the part of ``mmtrl_tpu/ops/mfcc.py``
-that ``mfcc_image`` uses.
+"""MFCC features; port of ``mmtrl_tpu/ops/mfcc.py``.
 
 The features follow python_speech_features' formulas (winlen 0.025,
 winstep 0.01, numcep 13, nfilt 26, nfft next_pow2(frame_len), preemph 0.97,
-ceplifter 22, appendEnergy, rectangular window).  The JAX package resizes
-the (13, frames) feature image with PIL's bicubic filter; here that resize
-is rebuilt as two numpy matrices with PIL's arithmetic, so the port needs
-no PIL.
+ceplifter 22, appendEnergy, rectangular window).  ``mfcc`` is the numpy
+path (float64, the init-time planes of ``mfcc_image``); ``mfcc_tensor`` the
+tensor path, float32 on the signal's device, batched over leading dims: the
+streaming stereo windows of the native 2600 envs, per step.  The JAX
+package resizes the (13, frames) feature image with PIL's bicubic filter;
+here that resize is rebuilt as two numpy matrices with PIL's arithmetic, so
+the port needs no PIL.  ``log_mel_spectrogram`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 def _round_half_up(x: float) -> int:
@@ -63,6 +67,10 @@ class MFCCParams:
     @property
     def high(self) -> float:
         return self.highfreq if self.highfreq is not None else self.samplerate / 2.0
+
+
+# Skeleton+ / ALE streaming audio parameters (reference: Config.py:87-89).
+SKELETON_PLUS_PARAMS = MFCCParams(samplerate=30720, winlen=0.010, winstep=0.003)
 
 
 def mel_filterbank(params: MFCCParams) -> np.ndarray:
@@ -125,6 +133,58 @@ def mfcc(signal: np.ndarray, params: MFCCParams = MFCCParams()) -> np.ndarray:
     feat = feat * lifter_coeffs(params)
     if params.append_energy:
         feat = np.concatenate([np.log(energy)[:, None], feat[:, 1:]], axis=-1)
+    return feat
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_constants(params: MFCCParams, device: torch.device):
+    """(mel filterbank transposed, DCT matrix, lifter) as float32 on ``device``."""
+    return tuple(
+        torch.tensor(m, dtype=torch.float32, device=device)
+        for m in (mel_filterbank(params).T, dct2_ortho_matrix(params.nfilt, params.numcep),
+                  lifter_coeffs(params))
+    )
+
+
+def _full_float32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with TF32 off whatever the global flag says.  JAX forces
+    ``Precision.HIGHEST`` on these two projections: reduced-precision
+    products cost about 0.1 after the log, and TF32 is one."""
+    if not a.is_cuda:
+        return a @ b
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+
+
+def mfcc_tensor(signal: torch.Tensor, params: MFCCParams = MFCCParams()) -> torch.Tensor:
+    """(..., num_frames, numcep) float32 MFCC features of the last axis of
+    ``signal``, on its device: the JAX ``mfcc(..., xp=jnp)`` under ``vmap``."""
+    sig = signal.float()
+    sig = torch.cat([sig[..., :1], sig[..., 1:] - params.preemph * sig[..., :-1]], dim=-1)
+    slen = sig.shape[-1]
+    nframes = _num_frames(slen, params)
+    flen, fstep = params.frame_len, params.frame_step
+    pad = (nframes - 1) * fstep + flen - slen
+    if pad > 0:
+        sig = torch.nn.functional.pad(sig, (0, pad))
+    idx = torch.as_tensor(np.arange(nframes)[:, None] * fstep + np.arange(flen)[None, :],
+                          device=sig.device)
+    frames = sig[..., idx]  # (..., nframes, flen)
+    spec = torch.fft.rfft(frames, n=params.fft_size, dim=-1)
+    pspec = (spec.real**2 + spec.imag**2) / params.fft_size
+    eps = torch.finfo(torch.float32).eps
+    energy = pspec.sum(dim=-1)
+    energy = torch.where(energy == 0, eps, energy)
+    fbank_t, dct_m, lifter = _tensor_constants(params, sig.device)
+    feat = _full_float32_matmul(pspec, fbank_t)
+    feat = torch.log(torch.where(feat == 0, eps, feat))
+    feat = _full_float32_matmul(feat, dct_m) * lifter
+    if params.append_energy:
+        feat = torch.cat([torch.log(energy)[..., None], feat[..., 1:]], dim=-1)
     return feat
 
 

@@ -7,7 +7,9 @@
 --script names the entry script whose model and architecture flags apply;
 the checkpoint's model (``RunnerState.payload()["model"]``) is loaded into
 a freshly built agent.  ``--script ppo`` (the classic-control MLP agent)
-waits for ROADMAP A.6 and the Skeleton+ ROM paths for A.7: both raise.
+waits for ROADMAP A.6; the Skeleton+ paths (the device simulator, and the
+native pool through JAX's ``io_callback``) wait for A.7: both raise.  The
+cartridge runs' greedy evaluation is the PPO host loop's ``--eval-steps``.
 """
 
 import dataclasses
@@ -65,8 +67,9 @@ def build_model(args, env, device):
 def main(args=None):
     args = args or cli(Args)
     if args.env_id.lower().startswith("skeleton_plus"):
-        raise NotImplementedError(f"--env-id {args.env_id}: the Skeleton+ ROM env is not "
-                                  "ported yet (ROADMAP A.7)")
+        raise NotImplementedError(f"--env-id {args.env_id}: evaluating the native pool in the "
+                                  "device loop (JAX's io_callback) is not ported (ROADMAP A.7); "
+                                  "the PPO host loop's --eval-steps evaluates greedily")
     device = device_from(args)
     env = make(args.env_id, device=device)
     model, recurrent = build_model(args, env, device)

@@ -1,0 +1,90 @@
+"""PPO on the native 2600 cartridges through the host loop; twin of
+``scripts/skeleton_plus_ppo.py`` (Skeleton+, stereo-audio maze hunt).
+
+The two-tower multimodal agent (video tower on the frame, audio tower on
+the stereo MFCC planes) trains with recurrent PPO while the C++ core emulates
+the cartridge on the host (``algos/ppo/hostloop.py``).  Same CLI as the JAX
+script.  ``--backend native --host-loop`` is the port's path;
+``--backend sim`` (the device ``SkeletonPlusSim``) and ``--backend native``
+without ``--host-loop`` (the JAX fused path through ``io_callback``) wait
+for ROADMAP A.7 and raise.  The default ROM is ``$MMTRL_SKELETON_ROM`` or
+``roms/SkelPlus.bin``, which the repository does not hold yet.
+
+    python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --backend native --host-loop \\
+        --rom-path <SkelPlus.bin>
+"""
+
+import dataclasses
+
+from mmtrl_tpu_torch.algos.ppo.hostloop import run_recurrent_ppo_hostloop
+from mmtrl_tpu_torch.core.config import cli
+from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
+from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+from mmtrl_tpu_torch.scripts._common import (
+    BasePPOArgs,
+    device_from,
+    field,
+    ppo_config_from,
+    seeded,
+)
+
+
+@dataclasses.dataclass
+class Args(BasePPOArgs):
+    exp_name: str = field("skeleton_plus_ppo", "the name of this experiment")
+    env_id: str = field("skeleton_plus", "the id of the environment")
+    num_envs: int = field(8, "parallel envs")
+    clip_rewards: bool = field(False, "shaped rewards stay raw")
+    attn_type: str = field("casl", "crossmodal attention type")
+    backend: str = field("sim", "env backend: 'sim' (device) or 'native' (real ROM)")
+    rom_path: str = field("", "cartridge path for --backend native (default: the env's)")
+    frameskip: int = field(8, "emulator frames per env step (native backend)")
+    reward_mode: str = field("shaped", "'shaped' (sim-compatible) or 'kills' (score delta)")
+    repeat_action_probability: float = field(
+        0.0, "ALE-v5 sticky actions, native backend (reference envpool setting: 0.25)")
+    host_loop: bool = field(
+        False, "native backend via the host rollout loop (policy and update on the card, "
+        "emulation on the host): the port's only native path")
+    eval_steps: int = field(4000, "greedy eval env-steps after host-loop training (0: skip)")
+
+
+def make_env(args, device):
+    """The native pool of ``--env-id`` (a ``*_native`` id; the bare sim id
+    maps to the Skeleton+ ROM)."""
+    native_key = args.env_id if args.env_id.endswith("_native") else "skeleton_plus_native"
+    return make_native_env(native_key, num_envs=args.num_envs, rom_path=args.rom_path,
+                           seed=args.seed, frameskip=args.frameskip,
+                           reward_mode=args.reward_mode,
+                           repeat_action_probability=args.repeat_action_probability,
+                           device=device)
+
+
+def main(args=None):
+    args = args or cli(Args)
+    if args.backend != "native":
+        raise NotImplementedError(f"--backend {args.backend}: the device SkeletonPlusSim is not "
+                                  "ported yet (ROADMAP A.7); use --backend native --host-loop")
+    if not args.host_loop:
+        raise NotImplementedError("--backend native without --host-loop: the fused loop reaches "
+                                  "the pool through io_callback, which the port does not have "
+                                  "(ROADMAP A.7); use --host-loop")
+    device = device_from(args)
+    env = make_env(args, device)
+    try:
+        model = seeded(args.seed, device, lambda: MultimodalRecurrentAgent(
+            num_actions=env.num_actions,
+            conv_type=args.conv_size,
+            attn_type=args.attn_type,
+            fusion_type=args.fusion_type,
+            input_scale=1.0,  # the native envs' observations lie in [-1, 1]
+            audio_channels=env.observation_space.shape[0] - 1,
+            device=device,
+        ))
+        return run_recurrent_ppo_hostloop(env, model, ppo_config_from(args), args, device,
+                                          eval_steps=args.eval_steps)
+    finally:
+        env.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -304,3 +304,67 @@ def test_ppo_family_agent_on_the_card_matches_the_cpu(name):
                       for x in (o if isinstance(o, tuple) else (o,))]
     for o, r in zip(flat(out), flat(ref), strict=True):
         assert (o.cpu() - r).abs().max().item() <= 1e-5 * max(r.abs().max().item(), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["dense", "gather"])
+def test_moe_block_on_the_card_matches_the_cpu(dispatch):
+    """One MoE Block (the flash kernel, then the top-2 of 4 experts)
+    forward and backward, float32 with TF32 off: 8 x 90 tokens, so the
+    gather dispatch's capacity (512 of 720 rows) drops assignments."""
+    _need_gpu()
+    from mmtrl_tpu_torch.models.decision_transformer import Block, DTConfig
+
+    cfg = DTConfig(num_actions=6, context_len=30, d_model=64, n_layers=1, n_heads=2,
+                   dropout=0.0, compute_dtype="float32", moe_experts=4, moe_top_k=2,
+                   moe_dispatch=dispatch)
+    torch.manual_seed(0)
+    card = Block(cfg, torch.device("cuda"))
+    cpu = Block(cfg, torch.device("cpu"))
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 90, 64, generator=g)
+    w = torch.randn(x.shape, generator=g)
+    sides = []
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for m, dev in ((card, "cuda"), (cpu, "cpu")):
+            xi = x.to(dev).requires_grad_()
+            y, aux = m(xi)
+            grads = torch.autograd.grad((y * w.to(dev)).sum() + aux, [xi] + list(m.parameters()))
+            sides.append([y.detach().cpu(), aux.detach().cpu()] + [t.cpu() for t in grads])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    # float32 sums in other orders; the routing (a logit gap near 1e-6
+    # would flip a choice) is the same on both sides
+    for a, b in zip(*sides):
+        assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-6)
+
+
+@pytest.mark.cuda
+def test_native_observation_on_the_card_matches_the_cpu():
+    """RALLY at 4 envs for 30 pool steps: ``_obs`` on the card (cuFFT) and
+    on the CPU (pocketfft) from the same frames and u8 audio code."""
+    _need_gpu()
+    import numpy as np
+
+    from mmtrl_tpu_torch.data.quant import dequant_audio_u8, quant_audio_u8
+    from mmtrl_tpu_torch.envs.homebrew_native import NativeHomebrew
+
+    card, cpu = NativeHomebrew(4, seed=2), NativeHomebrew(4, seed=2, device="cpu")
+    rng = np.random.default_rng(0)
+    try:
+        frames, audio = card._host_reset()
+        for _ in range(30):
+            code = torch.from_numpy(quant_audio_u8(audio))
+            obs = card._obs(frames, dequant_audio_u8(code.cuda()))
+            ref = cpu._obs(frames, dequant_audio_u8(code))
+            assert obs.device.type == "cuda" and obs.shape == (4, 3, 84, 84)
+            # values in [-1, 1]; float32 cepstra up to 40 summed in other
+            # orders, divided by each plane's range
+            assert (obs.cpu() - ref).abs().max().item() <= 1e-4
+            frames, audio = card._host_step(rng.integers(0, 6, 4).astype(np.int32))[:2]
+    finally:
+        card.close()
+        cpu.close()

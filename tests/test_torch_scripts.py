@@ -332,7 +332,8 @@ def test_metrics_writer_events_read_back(in_tmp):
 
 def test_registry_names_what_it_has():
     assert make("Minecraft2d", device="cpu").num_actions == 4
-    with pytest.raises(KeyError, match="available: \\['minecraft', 'minecraft2d'\\]"):
+    with pytest.raises(KeyError, match="available: \\['brick_native', 'minecraft', 'minecraft2d', "
+                                      "'rally_native', 'skeleton_plus_native'\\]"):
         make("CartPole-v1", device="cpu")
 
 

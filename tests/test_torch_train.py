@@ -171,8 +171,11 @@ def test_create_dt_state_from_a_generator_keeps_the_global_rng():
     for a, b in zip(states[0].model.parameters(), states[1].model.parameters()):
         assert torch.equal(a, b)
     assert int(states[0].step) == 0 and all(float(m.abs().sum()) == 0 for m in states[0].opt_state.mu)
-    with pytest.raises(NotImplementedError):  # MoE is not ported yet
-        create_dt_state(dataclasses.replace(cfg, moe_experts=4), tcfg, device="cpu")
+    # MoE FFNs: the experts' moments start at zero too
+    moe_state = create_dt_state(dataclasses.replace(cfg, moe_experts=4), tcfg, device="cpu")
+    names = [n for n, _ in moe_state.model.named_parameters()]
+    assert "block_0.moe.experts_w1" in names and "block_0.moe.gate.weight" in names
+    assert all(float(m.abs().sum()) == 0 for m in moe_state.opt_state.mu)
 
 
 def test_dt_overfits_tiny_batch():
