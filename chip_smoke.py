@@ -71,7 +71,24 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 CPU under each dispatch; train steps of the dense-FFN, MoE
                 dense and MoE gather DTs timed at dt_rom's shape; one
                 ``brick_ppo`` update.
-10. timing   -- each kernel, its plain version and the PyTorch call that
+10. skeleton -- Skeleton+ on the device simulator: the env card against
+                CPU under the same draws (a reset, then a scripted episode
+                with hits, misses, kills and respawns, contact, a win and
+                the time limit; state and reward equal, the observation
+                within its tolerance) and timed alone; ``skeleton_plus_ppo``
+                at its defaults (8 envs x 128 steps, casl, two audio
+                channels) for three updates with a save, a fourth resumed
+                and profiled; ``evaluate --script skeleton_plus_ppo`` on the
+                checkpoint.  No kernel lies on this path.
+11. offpolicy_rom -- value learning on RALLY: a ``dqn_td_update`` and a
+                ``c51_td_update`` at batch 128 card vs CPU (float64 within
+                1e-9, float32 distances reported); ``dqn_rom`` (profiled)
+                and ``c51_rom`` through ``main`` at full width, cut to
+                5,120 transitions through a ring of 4,096 (255 updates,
+                syncs every 125 and 250 pool steps) and a greedy
+                evaluation; ``dt_rom --policy-kind dqn`` and ``c51`` from
+                their checkpoints, counting each kernel's launches.
+12. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -1654,6 +1671,336 @@ def rom_checks(smi: str, tmp: str):
     return launches
 
 
+# Skeleton+ on the device simulator (ROADMAP A.7's first item): the env
+# card against CPU under the same draws, skeleton_plus_ppo at its defaults
+# (8 envs x 128 steps, 4 epochs x 4 minibatches, big towers, casl, two
+# audio channels, input scale 1) and evaluate on its checkpoint.
+SKEL_ENVS = 8  # skeleton_plus_ppo's default
+SKEL_SCRIPT_STEPS = 80  # steps of the scripted card-vs-CPU episode
+SKEL_TIMED_STEPS = 100  # sim steps timed alone, random actions
+# The observation, card against CPU: the frame is the same additions (equal);
+# the MFCC planes carry cuFFT's and pocketfft's other summation orders
+# (cepstra up to about 40) through the fixed normalisation (range about 60).
+SKEL_OBS_ATOL = 1e-4
+SKEL_UPDATE = SKEL_ENVS * 128  # env steps an update
+SKEL_PPO_ARGS = ["--save-interval", "3"]
+# Value learning on RALLY (ROADMAP A.6's cartridge half): dqn_rom and
+# c51_rom at full width (AtariTower('big') on 3 x 84 x 84, batch 128, 8 pool
+# envs, C51 on 51 atoms over [-10, 10], int8 replay), cut in depth: a ring
+# of 4,096 that the 5,120 transitions wrap, updates past 1,024 stored
+# transitions (255 of them, every 2nd pool step), a 200-step episode cap
+# and its floor of 300 greedy evaluation pool steps; C51's target sync every
+# 250 pool steps (of 1,250) so that it syncs more than once.
+Q_RUN_ARGS = ["--total-timesteps", "5120", "--buffer-size", "4096", "--learning-starts",
+              "1024", "--episode-steps", "200", "--eval-steps", "1", "--save-interval", "1000"]
+C51_RUN_ARGS = Q_RUN_ARGS + ["--target-network-frequency", "250"]
+Q_BATCH = 128
+# The TD updates card against CPU, float64 on both sides (in float32 a ReLU
+# input within rounding of zero can switch, and Adam turns the switched
+# near-zero gradient into a step of the learning rate).
+Q_PARAM_ATOL_FLOAT64 = 1e-9
+# dt_rom from the DQN checkpoint: the rom phase's cut of the PPO-policy run
+# (ROM_DT_ARGS) with the dense FFN; from the C51 checkpoint a shorter one
+# (2,048 transitions, 128 pool steps, enough for RALLY episodes to end; 10
+# train steps; the same 300 evaluation pool steps).
+Q_DT_ARGS = ROM_DT_ARGS[:ROM_DT_ARGS.index("--moe-experts")]  # the MoE flags end it
+C51_DT_ARGS = Q_DT_ARGS + ["--collect-steps", "2048", "--total-steps", "10"]
+
+
+class DrawTape:
+    """The simulator's three sampler hooks on the CPU env, recorded, and
+    the same draws replayed into the card env in the order it asks."""
+
+    def __init__(self, cpu_env, card_env):
+        self.tape = []
+        for hook, draw in (("reset_sampler", cpu_env.draw_reset),
+                           ("step_sampler", cpu_env.draw_step),
+                           ("noise_sampler", cpu_env.draw_noise)):
+            setattr(cpu_env, hook, self._record(draw))
+            setattr(card_env, hook, self._replay)
+
+    def _record(self, draw):
+        def sampler(n, generator):
+            out = draw(n, generator)
+            self.tape.append(out)
+            return out
+
+        return sampler
+
+    def _replay(self, n, generator):
+        return self.tape.pop(0)
+
+
+def skeleton_states(rows, device):
+    """A SkeletonState of rows (agent (r, c), facing, skeleton (r, c),
+    skel_hits, kills, life, t)."""
+    from mmtrl_tpu_torch.envs.skeleton_plus import SIZE, SkeletonState
+
+    cols = list(zip(*rows))
+    values = dict(agent=[r * SIZE + c for r, c in cols[0]], facing=cols[1],
+                  skeleton=[r * SIZE + c for r, c in cols[2]], skel_hits=cols[3],
+                  kills=cols[4], life=cols[5], t=cols[6], phase=[0] * len(rows))
+    return SkeletonState(**{k: torch.tensor(v, dtype=torch.long, device=device)
+                            for k, v in values.items()})
+
+
+def hunter(state, env) -> torch.Tensor:
+    """The scripted policy: fire at a skeleton in sight within range, else
+    turn toward or step along the BFS path to it."""
+    from mmtrl_tpu_torch.envs.skeleton_plus import (
+        FIRE, FIRE_RANGE, FORWARD, NOOP, SIZE, TURN_LEFT, TURN_RIGHT)
+
+    a, f, s = state.agent, state.facing, state.skeleton
+    target = env._next[a, s]
+    dvec = torch.stack([target // SIZE - a // SIZE, target % SIZE - a % SIZE], -1)
+    want = (dvec[:, None] == env._deltas[None]).all(-1).float().argmax(-1)
+    act = torch.where(want == f, FORWARD,
+                      torch.where((want - f) % 4 == 1, TURN_RIGHT, TURN_LEFT))
+    act = torch.where(target == a, NOOP, act)
+    return torch.where(env._vis[a, f, s] & (env._dist[a, s] <= FIRE_RANGE), FIRE, act)
+
+
+def skeleton_sim_checks(smi: str):
+    """(a) The simulator, card against CPU under the same draws: a reset of
+    SKEL_ENVS envs, then a scripted episode whose first two envs start two
+    hits from the win and 20 steps from the time limit (both with 30
+    lives), the rest from the reset; state and reward equal every step,
+    the observation within SKEL_OBS_ATOL.  The episode must show hits and
+    misses, kills with respawns, contact, a win and the time limit.  Then
+    the sim's ms a step alone."""
+    from mmtrl_tpu_torch.envs.skeleton_plus import FIRE, SkeletonPlusSim
+
+    cpu, card = SkeletonPlusSim(device="cpu"), SkeletonPlusSim()
+    tape = DrawTape(cpu, card)
+    g = torch.Generator().manual_seed(SEED)
+    obs_cpu, s_cpu = cpu.reset(SKEL_ENVS, g)
+    obs, s = card.reset(SKEL_ENVS)
+    worst = (obs.cpu() - obs_cpu).abs().max().item()
+    frame_equal = torch.equal(obs[:, 0].cpu(), obs_cpu[:, 0])
+    start = skeleton_states([((1, 1), 1, (1, 3), 3, 4, 30, 0), ((9, 1), 0, (1, 9), 0, 1, 30, 380)],
+                            "cpu")
+    s_cpu = type(s_cpu)(**{f.name: torch.cat([getattr(start, f.name), getattr(s_cpu, f.name)[2:]])
+                           for f in dataclasses.fields(s_cpu)})
+    s = type(s)(**{f.name: getattr(s_cpu, f.name).cuda() for f in dataclasses.fields(s_cpu)})
+    seen = dict(hit=0, miss=0, respawn=0, contact=0, win=0, time_limit=0)
+    states_equal = True
+    for _ in range(SKEL_SCRIPT_STEPS):
+        action = hunter(s_cpu, cpu)
+        before = s_cpu
+        obs_cpu, s_cpu, r_cpu, d_cpu, info = cpu.step(s_cpu, action, g)
+        obs, s, r, d, _ = card.step(s, action.cuda())
+        states_equal &= all(torch.equal(getattr(s, f.name).cpu(), getattr(s_cpu, f.name))
+                            for f in dataclasses.fields(s_cpu))
+        states_equal &= torch.equal(r.cpu(), r_cpu) and torch.equal(d.cpu(), d_cpu)
+        worst = max(worst, (obs.cpu() - obs_cpu).abs().max().item())
+        frame_equal &= torch.equal(obs[:, 0].cpu(), obs_cpu[:, 0])
+        fired = action == FIRE
+        killed = info["kills"] > before.kills
+        hit = killed | (~d_cpu & (s_cpu.skel_hits > before.skel_hits))
+        seen["hit"] += int((fired & hit).sum())
+        seen["miss"] += int((fired & ~hit & ~d_cpu).sum())
+        seen["respawn"] += int((killed & (info["kills"] < 5)).sum())
+        seen["contact"] += int((info["life"] < before.life).sum())
+        seen["win"] += int((info["kills"] >= 5).sum())
+        seen["time_limit"] += int((d_cpu & (info["kills"] < 5) & (info["life"] > 0)).sum())
+    ok = states_equal and frame_equal and worst <= SKEL_OBS_ATOL and all(seen.values())
+    emit("skeleton_sim", num_envs=SKEL_ENVS, steps=SKEL_SCRIPT_STEPS, states_equal=states_equal,
+         frame_equal=frame_equal, max_abs_err_obs=worst, tol=SKEL_OBS_ATOL, events=seen,
+         card=smi, ok=ok)
+    check(ok, f"Skeleton+ sim card vs CPU: states {states_equal}, frame {frame_equal}, "
+          f"obs {worst}, events {seen}")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    sim = SkeletonPlusSim()
+    _, state = sim.reset(SKEL_ENVS, g)
+    actions = torch.randint(0, 5, (SKEL_TIMED_STEPS, SKEL_ENVS), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SKEL_TIMED_STEPS):
+        o, state, _, _, _ = sim.step(state, actions[t], g)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / SKEL_TIMED_STEPS
+    _, wall, ops, busy, top = device_profile(lambda: sim.step(state, actions[0], g))
+    emit("skeleton_sim_step", num_envs=SKEL_ENVS, step_ms=step_ms,
+         env_steps_per_s=SKEL_ENVS * 1e3 / step_ms, profiled_step_ms=1e3 * wall, device_ops=ops,
+         device_busy_ms=busy, idle_share=1 - busy / (1e3 * wall), top_kernels=top[:4], card=smi)
+
+
+def skeleton_checks(smi: str, tmp: str):
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import evaluate, skeleton_plus_ppo
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    save_dir = os.path.join(tmp, "saved_agents")
+    skeleton_sim_checks(smi)
+
+    # (b) skeleton_plus_ppo at its defaults: three updates and a save, then
+    # update 4 resumed from it and profiled
+    out = skeleton_plus_ppo.main(cli(skeleton_plus_ppo.Args, SKEL_PPO_ARGS + [
+        "--total-timesteps", str(3 * SKEL_UPDATE), "--save-dir", save_dir]))
+    for r in out["history"]:
+        emit("skeleton_ppo", update=r["update"], wall_s=r["wall_s"], sps=r["sps"],
+             env_steps_per_s=SKEL_UPDATE / r["wall_s"], value_loss=r["losses/value_loss"],
+             episodic_return=r["episodic_return"],
+             max_memory_gb=r.get("max_memory_gb"), card=smi)
+        check(all(math.isfinite(r[k]) for k in ("losses/policy_loss", "losses/value_loss",
+                                                 "losses/entropy")),
+              f"skeleton_plus_ppo: non-finite losses in update {r['update']}")
+    check([r["update"] for r in out["history"]] == [1, 2, 3],
+          f"skeleton_plus_ppo ran updates {[r['update'] for r in out['history']]}")
+    model = out["runner"].model
+    check(model.audio_net.Conv_0.weight.shape[1] == 2 and model.input_scale == 1.0,
+          "skeleton_plus_ppo: the agent is not the two-channel, input-scale-1 casl agent")
+    ckpt = os.path.join(save_dir, out["run_name"])
+    resumed, wall, ops, busy, top = device_profile(lambda: skeleton_plus_ppo.main(cli(
+        skeleton_plus_ppo.Args, ["--load-from", ckpt, "--total-timesteps",
+                                 str(4 * SKEL_UPDATE)])))
+    check([r["update"] for r in resumed["history"]] == [4], "skeleton_plus_ppo resume")
+    emit("skeleton_ppo_profile", update=4, wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:4], card=smi)
+
+    # (c) evaluate on the checkpoint: 16 envs x 512 steps, greedy
+    t0 = time.perf_counter()
+    res = evaluate.main(cli(evaluate.Args, [
+        "--load-from", ckpt, "--script", "skeleton_plus_ppo", "--env-id", "skeleton_plus",
+        "--attn-type", "casl", "--input-scale", "1"]))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    emit("skeleton_evaluate", wall_s=eval_s, env_steps_per_s=16 * 512 / eval_s, **res, card=smi)
+    check(res["eval/episodes"] >= 1 and math.isfinite(res["eval/episodic_return"]),
+          f"skeleton evaluate: {res}")
+
+
+def phase_skeleton(smi: str, tmp: str):
+    """Skeleton+ on the device simulator: (a) the env card vs CPU and
+    timed, (b) skeleton_plus_ppo at its defaults for three updates, a
+    fourth resumed and profiled, (c) evaluate on the checkpoint.  No
+    kernel of the port lies on this path (its agent has no attention)."""
+    restoring_flags(skeleton_checks, smi, tmp)
+
+
+def td_update_checks(smi: str):
+    """A ``dqn_td_update`` and a ``c51_td_update`` at batch 128 on the
+    full-width Q networks, card against CPU from the same weights and
+    batch: in float64 within Q_PARAM_ATOL_FLOAT64, the float32 distances
+    (card from CPU, each from float64) reported."""
+    import copy
+
+    from mmtrl_tpu_torch.algos.offpolicy import c51_td_update, create_dqn_state, dqn_td_update
+    from mmtrl_tpu_torch.data.quant import dequant_obs_i8
+    from mmtrl_tpu_torch.models.agents import DistributionalQNetwork, QNetwork
+
+    g = torch.Generator().manual_seed(SEED)
+    codes = torch.randint(-127, 128, (2, Q_BATCH, 3, 84, 84), generator=g, dtype=torch.int8)
+    batch = dict(obs=dequant_obs_i8(codes[0]), next_obs=dequant_obs_i8(codes[1]),
+                 action=torch.randint(0, 6, (Q_BATCH,), generator=g),
+                 reward=torch.randint(-1, 2, (Q_BATCH,), generator=g).float(),
+                 done=(torch.rand(Q_BATCH, generator=g) < 0.1).float())
+    cases = {
+        "dqn": (lambda d: QNetwork(6, 1.0, device=d), 1e-4, 1e-8,
+                lambda ts, b, atoms: dqn_td_update(0.99, ts, b)[:3]),
+        "c51": (lambda d: DistributionalQNetwork(6, 51, 1.0, device=d), 2.5e-4, 0.01 / Q_BATCH,
+                lambda ts, b, atoms: c51_td_update(atoms, 0.99, ts, b)),
+    }
+    for name, (build, lr, eps, update) in cases.items():
+        card_net, cpu_net = card_and_cpu(build)
+        target_card, target_cpu = card_and_cpu(build)  # another init: a target apart
+        runs = {}
+        for label, net, target, device, dtype in (
+                ("card", card_net, target_card, "cuda", torch.float32),
+                ("cpu", cpu_net, target_cpu, "cpu", torch.float32),
+                ("card64", card_net, target_card, "cuda", torch.float64),
+                ("cpu64", cpu_net, target_cpu, "cpu", torch.float64)):
+            ts = create_dqn_state(copy.deepcopy(net).to(dtype), lr, eps)
+            ts.target.load_state_dict(target.state_dict())
+            b = {k: (v.to(dtype) if v.is_floating_point() else v).to(device)
+                 for k, v in batch.items()}
+            atoms = torch.linspace(-10.0, 10.0, 51, dtype=dtype, device=device)
+            ts, loss, q = update(ts, b, atoms)
+            runs[label] = (ts.model, float(loss), float(q))
+        err64, at64 = param_err([runs["card64"][0]], [runs["cpu64"][0]])
+        moved = param_err([runs["cpu64"][0]], [cpu_net])[0]
+        ok = err64 <= Q_PARAM_ATOL_FLOAT64 and moved > 0
+        emit("offpolicy_td_update", algo=name, batch_size=Q_BATCH, worst_param_abs_err=err64,
+             worst_param=at64, atol=Q_PARAM_ATOL_FLOAT64, largest_param_move=moved,
+             float32_card_vs_cpu=param_err([runs["card"][0]], [runs["cpu"][0]])[0],
+             float32_card_vs_float64_cpu=param_err([runs["card"][0]], [runs["cpu64"][0]])[0],
+             float32_cpu_vs_float64_cpu=param_err([runs["cpu"][0]], [runs["cpu64"][0]])[0],
+             loss_card_cpu=[runs["card"][1], runs["cpu"][1]],
+             loss_float64_card_cpu=[runs["card64"][1], runs["cpu64"][1]],
+             q_mean_card_cpu=[runs["card"][2], runs["cpu"][2]], card=smi, ok=ok)
+        check(ok, f"{name}_td_update card vs CPU in float64: {err64} at {at64}, moved {moved}")
+
+
+def offpolicy_checks(smi: str, tmp: str):
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import c51_rom, dqn_rom, dt_rom
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    save_dir = os.path.join(tmp, "saved_agents")
+    td_update_checks(smi)
+
+    # (b) dqn_rom (profiled) and c51_rom on RALLY
+    ckpts = {}
+    for name, module, argv in (("dqn_rom", dqn_rom, Q_RUN_ARGS), ("c51_rom", c51_rom, C51_RUN_ARGS)):
+        out, wall, ops, busy, top = device_profile(lambda: module.main(cli(
+            module.Args, argv + ["--save-dir", save_dir])))
+        pool_steps = out["pool_steps"]
+        emit("offpolicy_rom", run=name, wall_s=wall, train_s=out["train_s"],
+             eval_s=out["eval_s"], emulator_s=out["emulator_s"], pool_steps=pool_steps,
+             env_steps_per_s=out["global_step"] / out["train_s"],
+             ms_per_pool_step=1e3 * out["train_s"] / pool_steps, updates=out["updates"],
+             target_syncs=out["target_syncs"], td_loss=out["td_loss"],
+             q_values=out["q_values"], episodes=out["episodes"],
+             eval_pool_steps=out["eval_pool_steps"], eval_episodes=out.get("eval_episodes", 0),
+             eval_return=out.get("eval_episodic_return"), device_ops=ops, device_busy_ms=busy,
+             idle_share=1 - busy / (1e3 * wall), top_kernels=top[:4],
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        check(out["updates"] >= 20 and out["target_syncs"] >= 2,
+              f"{name}: {out['updates']} updates, {out['target_syncs']} target syncs")
+        check(math.isfinite(out["td_loss"]) and math.isfinite(out["q_values"]),
+              f"{name}: loss {out['td_loss']} q {out['q_values']}")
+        check(out.get("eval_episodes", 0) >= 1, f"{name}: no evaluation episode ended")
+        ckpts[name] = os.path.join(save_dir, out["run_name"])
+
+    # (c) dt_rom from each Q checkpoint: the three kernels at full width
+    launches = {}
+    for kind, argv in (("dqn", Q_DT_ARGS), ("c51", C51_DT_ARGS)):
+        reset_counts()
+        out = dt_rom.main(cli(dt_rom.Args, argv + ["--policy-from", ckpts[f"{kind}_rom"],
+                                                   "--policy-kind", kind]))
+        counts = read_counts()
+        layers, steps, pool = 6, out["train_steps"], out["eval_pool_steps"]
+        expected = {"flash_fwd": layers * (steps + pool), "flash_dq": layers * steps,
+                    "flash_dkv": layers * steps}
+        emit("offpolicy_dt", policy_kind=kind, collect_s=out["collect_s"],
+             train_s=out["train_s"], eval_s=out["eval_s"], train_steps=steps,
+             eval_pool_steps=pool, tokens_per_s=out["tokens_per_s"], loss=out["dt/loss"],
+             behavior_return=out["behavior/episodic_return"],
+             behavior_episodes=out["behavior/episodes"],
+             eval_return=out["eval/episodic_return"], eval_episodes=out["eval/episodes"],
+             launches=counts, expected_launches=expected, card=smi)
+        check(counts == expected, f"dt_rom --policy-kind {kind}: launches {counts}, "
+              f"expected {expected}")
+        check(math.isfinite(out["dt/loss"]) and out["eval/episodes"] >= 1,
+              f"dt_rom --policy-kind {kind}: loss {out['dt/loss']}, "
+              f"{out['eval/episodes']} episodes")
+        launches[kind] = counts
+    return launches
+
+
+def phase_offpolicy_rom(smi: str, tmp: str):
+    """Value learning on the cartridges: (a) both TD updates card vs CPU,
+    (b) dqn_rom (profiled) and c51_rom on RALLY through ``main``, (c)
+    dt_rom --policy-kind dqn and c51 from their checkpoints.  Returns the
+    kernel launches of the two dt_rom runs."""
+    return restoring_flags(offpolicy_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -1728,6 +2075,8 @@ def main() -> int:
         _, ppo_ckpt = phase_ppo(smi, tmp)
         phase_ppo_family(smi, ppo_ckpt)
         rom_launches = phase_rom(smi, tmp)
+        phase_skeleton(smi, tmp)
+        q_launches = phase_offpolicy_rom(smi, tmp)
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -1744,6 +2093,9 @@ def main() -> int:
             "rom_train": {k: timing[(name, "rom_train")][k]
                           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "rom_launches": rom_launches[name],
+            # dt_rom from the Q checkpoints (the value-learning slice)
+            "dqn_dt_launches": q_launches["dqn"][name],
+            "c51_dt_launches": q_launches["c51"][name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,10 @@ whose IMPALA trunk keeps flax's auto-numbered names
 ``adam_state_from_flax`` maps an optax ``ScaleByAdamState`` the same way,
 and ``ppo_opt_state_from_flax`` finds that state inside an optimizer's
 chain (the PPO optimizer's, or the RND predictor's plain ``optax.adam``),
-so a JAX train state carries over whole.
+so a JAX train state carries over whole.  The Q networks (``QNetwork``,
+``DistributionalQNetwork``: ``network`` and ``q``) take the same walk, and
+``dqn_payload_from_flax`` maps a whole ``DQNTrainState`` (params, target
+params, Adam state) onto the payload ``DQNTrainState.load_payload`` reads.
 """
 
 from __future__ import annotations
@@ -111,3 +114,13 @@ def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdam
     if len(found) != 1:
         raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(found)}")
     return adam_state_from_flax(found[0].count, found[0].mu, found[0].nu, names)
+
+
+def dqn_payload_from_flax(ts: Any, names: Sequence[str]) -> Dict[str, Any]:
+    """The port's ``DQNTrainState`` payload of a JAX ``DQNTrainState`` of
+    numpy arrays (``jax.device_get``), the Adam moments in the order of
+    ``names``, the Q network's ``named_parameters()``."""
+    opt = ppo_opt_state_from_flax(ts.opt_state, names)
+    return {"model": dt_params_from_flax(ts.params),
+            "target": dt_params_from_flax(ts.target_params),
+            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu}}

@@ -7,7 +7,8 @@
   0..15) and the emulator emits them as [0, 1] floats, so a 1/15 code is
   exact.
 
-The PPO and DT host loops quantise each step's audio on the host and build
+The DQN host loop's replay ring stores the int8 code.  The PPO and DT
+host loops quantise each step's audio on the host and build
 the observation from the dequantised code, as the JAX loops do, so their
 rollouts see the same observations.
 """
@@ -24,6 +25,11 @@ AUDIO_SCALE = 15.0  # u8 code for 4-bit TIA volumes in [0, 1]
 def quant_obs_i8(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] float obs -> int8 (round half to even, as ``jnp.rint``)."""
     return torch.clamp(torch.round(x * OBS_SCALE), -127, 127).to(torch.int8)
+
+
+def dequant_obs_i8(x: torch.Tensor) -> torch.Tensor:
+    """int8 obs code -> float32 in [-1, 1]."""
+    return x.float() / OBS_SCALE
 
 
 def quant_audio_u8(audio: np.ndarray) -> np.ndarray:

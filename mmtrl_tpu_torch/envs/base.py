@@ -3,8 +3,8 @@
 An environment steps a whole batch of envs at once: its state is a
 dataclass of tensors with the batch on dim 0, and ``step`` auto-resets the
 envs that are done, as the JAX env does (on done, obs and state come from a
-fresh reset, reward and done from the terminal transition).  Reset draws
-come from an explicit ``torch.Generator``.
+fresh reset, reward and done from the terminal transition).  Reset and
+step draws come from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ def tree_select(pred: torch.Tensor, on_true, on_false):
 
 class Environment(abc.ABC):
     """Subclasses implement ``reset`` and ``_step_env``; ``step`` adds the
-    auto-reset, drawing a reset for every env each step as the JAX env does."""
+    auto-reset, drawing a reset for every env each step as the JAX env does.
+    The transition draws first, then the reset."""
 
     device: torch.device
 
@@ -50,7 +51,8 @@ class Environment(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def _step_env(self, state: EnvState, action: torch.Tensor) -> StepResult:
+    def _step_env(self, state: EnvState, action: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> StepResult:
         ...
 
     @property
@@ -77,7 +79,7 @@ class Environment(abc.ABC):
         action: torch.Tensor,
         generator: Optional[torch.Generator] = None,
     ) -> StepResult:
-        obs_st, state_st, reward, done, info = self._step_env(state, action)
+        obs_st, state_st, reward, done, info = self._step_env(state, action, generator)
         obs_rs, state_rs = self.reset(action.shape[0], generator)
         state = tree_select(done, state_rs, state_st)
         obs = torch.where(_expand(done, obs_st), obs_rs, obs_st)

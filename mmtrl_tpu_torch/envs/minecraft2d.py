@@ -117,7 +117,9 @@ class Minecraft2d(Environment):
         return torch.stack([frame, self._audio[audio_idx]], dim=1)
 
     # ---- step -----------------------------------------------------------
-    def _step_env(self, state: MinecraftState, action: torch.Tensor) -> StepResult:
+    def _step_env(self, state: MinecraftState, action: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> StepResult:
+        """Deterministic: draws nothing from ``generator``."""
         agent = (state.agent + self._deltas[action]).clamp(0, GRID - 1)
         at_good = (agent == state.good).all(dim=-1)
         at_bad = (agent == state.bad).all(dim=-1)

@@ -1,10 +1,11 @@
 """Environment registry: ``make(env_id)`` like the reference's make_env
 thunks; port of ``mmtrl_tpu/envs/registry.py``.  Ported so far:
-Minecraft2d and the native 2600 cartridges (``rally_native``,
-``brick_native``, ``skeleton_plus_native``, the last needing SkelPlus.bin,
-which is not in the repository).  ``make`` passes its keyword arguments to
-the env (``device``, ``use_audio``; the native envs' ``num_envs``,
-``rom_path``, ``seed``, ...)."""
+Minecraft2d, the Skeleton+ device simulator (``skeleton_plus``) and the
+native 2600 cartridges (``rally_native``, ``brick_native``,
+``skeleton_plus_native``, the last needing SkelPlus.bin, which is not in
+the repository).  ``make`` passes its keyword arguments to the env
+(``device``, ``use_audio``, the simulator's samplers; the native envs'
+``num_envs``, ``rom_path``, ``seed``, ...)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from mmtrl_tpu_torch.envs.base import Environment
 from mmtrl_tpu_torch.envs.homebrew_native import NativeBrick, NativeHomebrew
 from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
 from mmtrl_tpu_torch.envs.skeleton_native import NativeSkeletonPlus
+from mmtrl_tpu_torch.envs.skeleton_plus import SkeletonPlusSim
 
 registry: Dict[str, Callable[..., Environment]] = {}
 
@@ -28,6 +30,7 @@ def register(*names: str):
 
 
 register("minecraft", "Minecraft2d")(Minecraft2d)
+register("skeleton_plus", "SkeletonPlus")(SkeletonPlusSim)
 register("skeleton_plus_native")(NativeSkeletonPlus)
 register("rally_native")(NativeHomebrew)
 register("brick_native")(NativeBrick)

@@ -1,5 +1,6 @@
-"""Actor-critic agents; port of ``MultimodalRecurrentAgent``,
-``RecurrentAgent`` and ``CNNAgent`` of ``mmtrl_tpu/models/agents.py``.
+"""Actor-critic agents and Q networks; port of ``MultimodalRecurrentAgent``,
+``RecurrentAgent``, ``CNNAgent``, ``QNetwork`` and
+``DistributionalQNetwork`` of ``mmtrl_tpu/models/agents.py``.
 
 One call of a recurrent agent takes a whole (T, B, ...) window: the
 rollout passes T = 1, the PPO update the full ``num_steps`` sequence.  The
@@ -22,14 +23,15 @@ Kept from the JAX agents:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mmtrl_tpu_torch import DeviceLike, resolve_device
 from mmtrl_tpu_torch.models.attention import CaslAttention, NewAttention, SigmoidGate
-from mmtrl_tpu_torch.models.common import AtariTower, Dense
+from mmtrl_tpu_torch.models.common import AtariTower, Dense, MLPTower
 from mmtrl_tpu_torch.models.lstm import Carry, LSTMCell
 
 ATTENTION = {"casl": CaslAttention, "new": NewAttention}
@@ -174,3 +176,63 @@ class CNNAgent(nn.Module):
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         feat = self.network(obs / self.input_scale)
         return self.actor(feat), self.critic(feat)[..., 0]
+
+
+def _lecun_dense(in_features: int, out_features: int, device: torch.device) -> Dense:
+    """flax ``nn.Dense`` at its default init: a lecun-normal (truncated)
+    weight and a zero bias."""
+    layer = Dense(in_features, out_features, device=device)
+    std = math.sqrt(1.0 / in_features) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
+    return layer
+
+
+class _QTrunk(nn.Module):
+    """The Q networks' trunk: ``AtariTower('big')`` on (C, 84, 84) images
+    divided by ``input_scale`` (cleanrl/dqn_atari_jax.py), a 120-84 ReLU
+    ``MLPTower`` on vectors (cleanrl/dqn.py), which are not scaled."""
+
+    def _trunk(self, obs_shape: Sequence[int], input_scale: float,
+               device: torch.device) -> int:
+        self.input_scale = input_scale
+        if len(obs_shape) == 3:
+            self.network = AtariTower("big", obs_shape[0], device=device)
+        else:
+            self.network = MLPTower(obs_shape[0], (120, 84), activation="relu", device=device)
+        return self.network.feature_size
+
+    def features(self, obs: torch.Tensor) -> torch.Tensor:
+        if obs.dim() >= 4:
+            obs = obs / self.input_scale
+        return self.network(obs)
+
+
+class QNetwork(_QTrunk):
+    """DQN's Q network: obs (B, *obs_shape) -> Q values (B, A)."""
+
+    def __init__(self, num_actions: int, input_scale: float = 255.0,
+                 obs_shape: Sequence[int] = (3, 84, 84), device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.q = _lecun_dense(self._trunk(obs_shape, input_scale, device), num_actions, device)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.q(self.features(obs))
+
+
+class DistributionalQNetwork(_QTrunk):
+    """C51's network: obs -> per-action probabilities over ``n_atoms``
+    support points, (B, A, n_atoms) (cleanrl/c51_atari_jax.py)."""
+
+    def __init__(self, num_actions: int, n_atoms: int = 101, input_scale: float = 255.0,
+                 obs_shape: Sequence[int] = (3, 84, 84), device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_actions, self.n_atoms = num_actions, n_atoms
+        self.q = _lecun_dense(self._trunk(obs_shape, input_scale, device),
+                              num_actions * n_atoms, device)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        logits = self.q(self.features(obs))
+        return torch.softmax(logits.reshape(-1, self.num_actions, self.n_atoms), dim=-1)

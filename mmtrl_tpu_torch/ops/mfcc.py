@@ -146,10 +146,11 @@ def _tensor_constants(params: MFCCParams, device: torch.device):
     )
 
 
-def _full_float32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def full_float32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with TF32 off whatever the global flag says.  JAX forces
-    ``Precision.HIGHEST`` on these two projections: reduced-precision
-    products cost about 0.1 after the log, and TF32 is one."""
+    ``Precision.HIGHEST`` on the MFCC's two projections: reduced-precision
+    products cost about 0.1 after the log, and TF32 is one.  The Skeleton+
+    simulator lifts its cepstra to 84x84 through it too."""
     if not a.is_cuda:
         return a @ b
     allowed = torch.backends.cuda.matmul.allow_tf32
@@ -180,9 +181,9 @@ def mfcc_tensor(signal: torch.Tensor, params: MFCCParams = MFCCParams()) -> torc
     energy = pspec.sum(dim=-1)
     energy = torch.where(energy == 0, eps, energy)
     fbank_t, dct_m, lifter = _tensor_constants(params, sig.device)
-    feat = _full_float32_matmul(pspec, fbank_t)
+    feat = full_float32_matmul(pspec, fbank_t)
     feat = torch.log(torch.where(feat == 0, eps, feat))
-    feat = _full_float32_matmul(feat, dct_m) * lifter
+    feat = full_float32_matmul(feat, dct_m) * lifter
     if params.append_energy:
         feat = torch.cat([torch.log(energy)[..., None], feat[..., 1:]], dim=-1)
     return feat

@@ -3,21 +3,24 @@
 
 Three stages, each through the host loop (``algos/dt/hostloop.py``):
 
-  1. collect: the C++ pool steps the cartridge; a behaviour policy (a PPO
-     agent saved by ``scripts.rally_ppo``/``brick_ppo``/``skeleton_plus_ppo``
-     with epsilon-random actions, or uniform actions without
-     ``--policy-from``) acts on the card;
+  1. collect: the C++ pool steps the cartridge; a behaviour policy acts on
+     the card with epsilon-random actions: a PPO agent saved by
+     ``scripts.rally_ppo``/``brick_ppo``/``skeleton_plus_ppo``
+     (``--policy-kind ppo``), a Q network saved by ``scripts.dqn_rom``
+     (argmax-Q, ``dqn``) or ``scripts.c51_rom`` (argmax of the expected Q
+     over the support, ``c51``), or uniform actions without
+     ``--policy-from``;
   2. train: the offline DT (``make_dt_train_steps``), attention through the
      CUDA kernels, optionally with MoE FFNs (``--moe-experts``);
   3. eval: return-conditioned on the same cartridge.
 
-Same CLI as the JAX script.  ``--policy-from`` names a checkpoint of the
-port's PPO host loop; ``--policy-kind dqn|c51`` (the off-policy host loops'
-Q states) waits for ROADMAP A.6 and raises.
+Same CLI as the JAX script.
 
     python -m mmtrl_tpu_torch.scripts.dt_rom --env-id rally_native \\
         --policy-from saved_agents/<run> --policy-conv-size big \\
         --moe-experts 4 --moe-top-k 2 --moe-dispatch gather
+    python -m mmtrl_tpu_torch.scripts.dt_rom --env-id rally_native \\
+        --policy-from saved_agents/<dqn_rom run> --policy-kind dqn
 """
 
 import dataclasses
@@ -28,11 +31,17 @@ import torch
 
 from mmtrl_tpu_torch.algos.dt import DTTrainConfig, create_dt_state, make_dt_train_steps
 from mmtrl_tpu_torch.algos.dt.hostloop import collect_trajectories_host, evaluate_dt_host
+from mmtrl_tpu_torch.algos.offpolicy import expected_q_greedy
+from mmtrl_tpu_torch.algos.offpolicy.hostloop_dqn import argmax_q
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
-from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+from mmtrl_tpu_torch.models.agents import (
+    DistributionalQNetwork,
+    MultimodalRecurrentAgent,
+    QNetwork,
+)
 from mmtrl_tpu_torch.models.decision_transformer import DTConfig
 from mmtrl_tpu_torch.models.distributions import categorical_sample
 from mmtrl_tpu_torch.scripts._common import device_from, field
@@ -56,10 +65,10 @@ class Args:
     repeat_action_probability: float = field(
         0.0, "ALE-v5 sticky actions (reference envpool setting: 0.25)")
     # --- behavior policy (stage 1) ---
-    policy_from: str = field("", "checkpoint of a PPO host-loop run (saved_agents/<run>); "
-                             "empty = random")
+    policy_from: str = field("", "checkpoint of a PPO, DQN or C51 host-loop run "
+                             "(saved_agents/<run>); empty = random")
     policy_kind: str = field("ppo", "behavior checkpoint kind: ppo (recurrent actor) | dqn | c51 "
-                             "(not ported yet: ROADMAP A.6)")
+                             "(hostloop_dqn train states)")
     policy_epsilon: float = field(0.1, "random-action mixture for dataset diversity")
     policy_greedy: bool = field(False, "argmax instead of sampling from the policy")
     policy_attn_type: str = field("casl", "ppo behavior agent attention type")
@@ -98,11 +107,39 @@ class Args:
     save_dir: str = field("saved_agents", "checkpoint folder")
 
 
+def q_behavior_policy(args, env, device):
+    """(policy_fn, None) of the Q network saved at ``--policy-from`` by
+    ``scripts.dqn_rom`` or ``scripts.c51_rom``: its greedy action (argmax-Q;
+    C51: of the expected Q over the support) mixed with epsilon-random
+    actions, the policy the Q run itself evaluates greedily."""
+    kw = dict(num_actions=env.num_actions, input_scale=1.0,
+              obs_shape=env.observation_space.shape, device=device)
+    if args.policy_kind == "dqn":
+        qnet, greedy_fn = QNetwork(**kw), argmax_q
+    else:
+        qnet = DistributionalQNetwork(n_atoms=args.policy_n_atoms, **kw)
+        greedy_fn = expected_q_greedy(torch.linspace(
+            args.policy_v_min, args.policy_v_max, args.policy_n_atoms, device=device))
+    qnet.load_state_dict(load_run(args.policy_from, map_location=device)["model"])
+    eps, n_act = args.policy_epsilon, env.num_actions
+
+    @torch.no_grad()
+    def policy_fn(gen, obs, done, carry):
+        pi = greedy_fn(qnet, obs)
+        rand = torch.randint(0, n_act, pi.shape, generator=gen, device=device)
+        mix = torch.rand(pi.shape, generator=gen, device=device) < eps
+        return torch.where(mix, rand, pi), carry
+
+    return policy_fn, None
+
+
 def behavior_policy(args, env, device):
-    """(policy_fn, initial carry) of the PPO agent saved at
-    ``--policy-from`` with epsilon-random actions, or (None, None)."""
+    """(policy_fn, initial carry) of the agent saved at ``--policy-from``
+    with epsilon-random actions, or (None, None)."""
     if not args.policy_from:
         return None, None
+    if args.policy_kind in ("dqn", "c51"):
+        return q_behavior_policy(args, env, device)
     agent = MultimodalRecurrentAgent(
         num_actions=env.num_actions,
         conv_type=args.policy_conv_size,
@@ -135,9 +172,6 @@ def main(args=None):
         raise SystemExit(
             f"--episode-steps {args.episode_steps} exceeds --max-timestep "
             f"{args.max_timestep}; raise the embedding table to at least the episode cap")
-    if args.policy_from and args.policy_kind in ("dqn", "c51"):
-        raise NotImplementedError(f"--policy-kind {args.policy_kind}: the off-policy host loops "
-                                  "and their Q networks are not ported yet (ROADMAP A.6)")
     device = device_from(args)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     run_name = f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"

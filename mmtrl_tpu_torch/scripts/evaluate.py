@@ -6,10 +6,17 @@
 
 --script names the entry script whose model and architecture flags apply;
 the checkpoint's model (``RunnerState.payload()["model"]``) is loaded into
-a freshly built agent.  ``--script ppo`` (the classic-control MLP agent)
-waits for ROADMAP A.6; the Skeleton+ paths (the device simulator, and the
-native pool through JAX's ``io_callback``) wait for A.7: both raise.  The
-cartridge runs' greedy evaluation is the PPO host loop's ``--eval-steps``.
+a freshly built agent.  ``--script skeleton_plus_ppo`` rebuilds the
+two-tower agent on the env's audio channels (two on ``skeleton_plus``,
+the device simulator); give its ``--attn-type`` and ``--input-scale 1``,
+as for the JAX script.  ``--script ppo`` (the classic-control MLP agent)
+waits for ROADMAP A.6, and ``--env-id skeleton_plus_native`` (the native
+pool in the device loop, through JAX's ``io_callback``) for A.7: both
+raise.  The cartridge runs' greedy evaluation is the host loops'
+``--eval-steps``.
+
+    python -m mmtrl_tpu_torch.scripts.evaluate --load-from saved_agents/<run_name> \\
+        --script skeleton_plus_ppo --env-id skeleton_plus --attn-type casl --input-scale 1
 """
 
 import dataclasses
@@ -43,13 +50,11 @@ class Args:
 
 def build_model(args, env, device):
     """(agent, recurrent) for ``--script``."""
-    if args.script.startswith("skeleton_plus"):
-        raise NotImplementedError(f"--script {args.script}: Skeleton+ is not ported yet "
-                                  "(ROADMAP A.7)")
-    if args.script in ("train", "minecraft_lstm"):
+    if args.script in ("train", "minecraft_lstm", "skeleton_plus_ppo"):
         return MultimodalRecurrentAgent(
             num_actions=env.num_actions, conv_type=args.conv_size, attn_type=args.attn_type,
-            fusion_type=args.fusion_type, input_scale=args.input_scale, device=device), True
+            fusion_type=args.fusion_type, input_scale=args.input_scale,
+            audio_channels=env.observation_space.shape[0] - 1, device=device), True
     if args.script == "minecraft_lstm_attention":
         return MultimodalRecurrentAgent(
             num_actions=env.num_actions, conv_type=args.conv_size, attn_type="gate",
@@ -66,7 +71,7 @@ def build_model(args, env, device):
 
 def main(args=None):
     args = args or cli(Args)
-    if args.env_id.lower().startswith("skeleton_plus"):
+    if args.env_id.lower() == "skeleton_plus_native":
         raise NotImplementedError(f"--env-id {args.env_id}: evaluating the native pool in the "
                                   "device loop (JAX's io_callback) is not ported (ROADMAP A.7); "
                                   "the PPO host loop's --eval-steps evaluates greedily")

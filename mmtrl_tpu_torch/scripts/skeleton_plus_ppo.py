@@ -1,23 +1,35 @@
-"""PPO on the native 2600 cartridges through the host loop; twin of
-``scripts/skeleton_plus_ppo.py`` (Skeleton+, stereo-audio maze hunt).
+"""PPO on Skeleton+ (stereo-audio maze hunt), on the device simulator or
+a native cartridge; twin of ``scripts/skeleton_plus_ppo.py``.
 
 The two-tower multimodal agent (video tower on the frame, audio tower on
-the stereo MFCC planes) trains with recurrent PPO while the C++ core emulates
-the cartridge on the host (``algos/ppo/hostloop.py``).  Same CLI as the JAX
-script.  ``--backend native --host-loop`` is the port's path;
-``--backend sim`` (the device ``SkeletonPlusSim``) and ``--backend native``
-without ``--host-loop`` (the JAX fused path through ``io_callback``) wait
-for ROADMAP A.7 and raise.  The default ROM is ``$MMTRL_SKELETON_ROM`` or
-``roms/SkelPlus.bin``, which the repository does not hold yet.
+the two stereo MFCC planes) trains with recurrent PPO:
 
+- ``--backend sim`` (the default): the device ``SkeletonPlusSim``
+  (``envs/skeleton_plus.py``) through ``make_recurrent_ppo`` and the PPO
+  runner, as ``scripts.train`` runs Minecraft2d;
+- ``--backend native --host-loop``: the C++ core emulates a cartridge on
+  the host (``algos/ppo/hostloop.py``); ``--env-id`` names a ``*_native``
+  env, the bare ``skeleton_plus`` the Skeleton+ ROM
+  (``$MMTRL_SKELETON_ROM`` or ``roms/SkelPlus.bin``, not in the
+  repository yet).  ``--backend native`` without ``--host-loop`` (the JAX
+  fused path through ``io_callback``) raises, naming ROADMAP A.7.
+
+Same CLI as the JAX script.
+
+    python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo
+    python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --cuda False --conv-size small \\
+        --num-envs 2 --num-steps 8 --total-timesteps 32
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --backend native --host-loop \\
         --rom-path <SkelPlus.bin>
 """
 
 import dataclasses
 
+from mmtrl_tpu_torch.algos.ppo import make_recurrent_ppo
 from mmtrl_tpu_torch.algos.ppo.hostloop import run_recurrent_ppo_hostloop
+from mmtrl_tpu_torch.algos.ppo.runner import run_training
 from mmtrl_tpu_torch.core.config import cli
+from mmtrl_tpu_torch.envs import make
 from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
 from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
 from mmtrl_tpu_torch.scripts._common import (
@@ -49,8 +61,11 @@ class Args(BasePPOArgs):
 
 
 def make_env(args, device):
-    """The native pool of ``--env-id`` (a ``*_native`` id; the bare sim id
-    maps to the Skeleton+ ROM)."""
+    """``--backend sim``: the env of ``--env-id`` on the device; ``native``:
+    the pool of ``--env-id`` (a ``*_native`` id; the bare sim id maps to the
+    Skeleton+ ROM)."""
+    if args.backend != "native":
+        return make(args.env_id, device=device)
     native_key = args.env_id if args.env_id.endswith("_native") else "skeleton_plus_native"
     return make_native_env(native_key, num_envs=args.num_envs, rom_path=args.rom_path,
                            seed=args.seed, frameskip=args.frameskip,
@@ -61,29 +76,32 @@ def make_env(args, device):
 
 def main(args=None):
     args = args or cli(Args)
-    if args.backend != "native":
-        raise NotImplementedError(f"--backend {args.backend}: the device SkeletonPlusSim is not "
-                                  "ported yet (ROADMAP A.7); use --backend native --host-loop")
-    if not args.host_loop:
+    if args.host_loop and args.backend != "native":
+        raise SystemExit("--host-loop requires --backend native")
+    if args.backend == "native" and not args.host_loop:
         raise NotImplementedError("--backend native without --host-loop: the fused loop reaches "
                                   "the pool through io_callback, which the port does not have "
                                   "(ROADMAP A.7); use --host-loop")
     device = device_from(args)
     env = make_env(args, device)
     try:
+        cfg = ppo_config_from(args)
         model = seeded(args.seed, device, lambda: MultimodalRecurrentAgent(
             num_actions=env.num_actions,
             conv_type=args.conv_size,
             attn_type=args.attn_type,
             fusion_type=args.fusion_type,
-            input_scale=1.0,  # the native envs' observations lie in [-1, 1]
+            input_scale=1.0,  # the observations lie in [-1, 1]: no legacy /255
             audio_channels=env.observation_space.shape[0] - 1,
             device=device,
         ))
-        return run_recurrent_ppo_hostloop(env, model, ppo_config_from(args), args, device,
+        if not args.host_loop:
+            return run_training(make_recurrent_ppo(env, model, cfg), cfg, args, device)
+        return run_recurrent_ppo_hostloop(env, model, cfg, args, device,
                                           eval_steps=args.eval_steps)
     finally:
-        env.close()
+        if args.host_loop:  # the native pool
+            env.close()
 
 
 if __name__ == "__main__":

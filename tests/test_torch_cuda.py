@@ -368,3 +368,79 @@ def test_native_observation_on_the_card_matches_the_cpu():
     finally:
         card.close()
         cpu.close()
+
+
+@pytest.mark.cuda
+def test_skeleton_sim_on_the_card_matches_the_cpu():
+    """The Skeleton+ simulator at 8 envs for 40 steps of random actions, the
+    draws made on the CPU and replayed into the card env: state, reward and
+    done equal, the frame equal, the MFCC planes (cuFFT against pocketfft)
+    within 1e-4."""
+    _need_gpu()
+    from mmtrl_tpu_torch.envs.skeleton_plus import SkeletonPlusSim
+
+    cpu, card = SkeletonPlusSim(device="cpu"), SkeletonPlusSim()
+    tape = []
+
+    def record(draw):
+        def sampler(n, generator):
+            tape.append(draw(n, generator))
+            return tape[-1]
+
+        return sampler
+
+    cpu.reset_sampler, cpu.step_sampler, cpu.noise_sampler = (
+        record(cpu.draw_reset), record(cpu.draw_step), record(cpu.draw_noise))
+    card.reset_sampler = card.step_sampler = card.noise_sampler = lambda n, g: tape.pop(0)
+    g = torch.Generator().manual_seed(0)
+    obs_cpu, s_cpu = cpu.reset(8, g)
+    obs, s = card.reset(8)
+    for _ in range(40):
+        assert obs.device.type == "cuda" and torch.equal(obs[:, 0].cpu(), obs_cpu[:, 0])
+        assert (obs.cpu() - obs_cpu).abs().max().item() <= 1e-4
+        action = torch.randint(0, 5, (8,), generator=g)
+        obs_cpu, s_cpu, r_cpu, d_cpu, _ = cpu.step(s_cpu, action, g)
+        obs, s, r, d, _ = card.step(s, action.cuda())
+        for name in ("agent", "facing", "skeleton", "skel_hits", "kills", "life", "t", "phase"):
+            assert torch.equal(getattr(s, name).cpu(), getattr(s_cpu, name)), name
+        assert torch.equal(r.cpu(), r_cpu) and torch.equal(d.cpu(), d_cpu)
+    assert not tape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["dqn", "c51"])
+def test_td_update_on_the_card_matches_the_cpu(algo):
+    """One TD update of the full-width Q network at batch 32, in float64 on
+    the card and on the CPU from the same weights and batch: parameters
+    within 1e-9 (float32 would let a ReLU switch and Adam turn it into a
+    step of the learning rate)."""
+    _need_gpu()
+    from mmtrl_tpu_torch.algos.offpolicy import c51_td_update, create_dqn_state, dqn_td_update
+    from mmtrl_tpu_torch.models.agents import DistributionalQNetwork, QNetwork
+
+    g = torch.Generator().manual_seed(0)
+    batch = dict(obs=torch.rand(32, 3, 84, 84, generator=g) * 2 - 1,
+                 next_obs=torch.rand(32, 3, 84, 84, generator=g) * 2 - 1,
+                 action=torch.randint(0, 6, (32,), generator=g),
+                 reward=torch.randint(-1, 2, (32,), generator=g).float(),
+                 done=(torch.rand(32, generator=g) < 0.2).float())
+    torch.manual_seed(0)
+    net = (QNetwork(6, 1.0, device="cpu") if algo == "dqn"
+           else DistributionalQNetwork(6, 51, 1.0, device="cpu"))
+    sides = []
+    for device in ("cuda", "cpu"):
+        ts = create_dqn_state(type(net)(6, *(() if algo == "dqn" else (51,)), 1.0,
+                                        device=device).double(), 1e-4, 1e-8)
+        ts.model.load_state_dict(net.state_dict())
+        ts.target.load_state_dict({k: v * 0.9 for k, v in net.state_dict().items()})
+        b = {k: (v.double() if v.is_floating_point() else v).to(device) for k, v in batch.items()}
+        if algo == "dqn":
+            ts, loss, _, _ = dqn_td_update(0.99, ts, b)
+        else:
+            atoms = torch.linspace(-10.0, 10.0, 51, dtype=torch.float64, device=device)
+            ts, loss, _ = c51_td_update(atoms, 0.99, ts, b)
+        sides.append((loss.item(), [p.detach().cpu() for p in ts.model.parameters()]))
+    (loss_card, card), (loss_cpu, cpu) = sides
+    assert abs(loss_card - loss_cpu) <= 1e-9 * abs(loss_cpu)
+    assert max((a - b).abs().max().item() for a, b in zip(card, cpu)) <= 1e-9
+    assert any(not torch.equal(a, b.double()) for a, b in zip(cpu, net.parameters()))

@@ -130,7 +130,7 @@ def test_evaluate_dt_restores_the_callers_mode():
     evaluate_dt(env, cfg, model, 10.0, num_envs=2, num_steps=1, device="cpu")
     assert not model.training
 
-    def fail(state, action):
+    def fail(state, action, generator=None):
         raise RuntimeError("env step failed")
 
     model.train()

@@ -1,8 +1,11 @@
-"""The port's cartridge entry points on the CPU (``--cuda False``, tiny
-budgets): ``rally_ppo`` and ``brick_ppo`` through the host loop with a save
-and a ``--load-from`` resume, ``dt_rom`` collecting with that checkpoint
-and training a plain and an MoE DT, the CLIs against the JAX scripts', and
-the branches that wait for later ports."""
+"""The port's cartridge and Skeleton+ entry points on the CPU (``--cuda
+False``, tiny budgets): ``rally_ppo`` and ``brick_ppo`` through the host
+loop with a save and a ``--load-from`` resume, ``dt_rom`` collecting with
+that checkpoint and training a plain and an MoE DT, ``dqn_rom`` with a save
+and a resume, ``c51_rom``, ``dt_rom`` collecting with their Q checkpoints,
+``skeleton_plus_ppo`` on the device simulator and ``evaluate`` on its
+checkpoint, the CLIs against the JAX scripts', and the branches that wait
+for later ports or a missing ROM."""
 
 import dataclasses
 import importlib.util
@@ -15,7 +18,15 @@ import torch
 
 from mmtrl_tpu_torch.core import checkpoint
 from mmtrl_tpu_torch.core.config import cli
-from mmtrl_tpu_torch.scripts import brick_ppo, dt_rom, rally_ppo, skeleton_plus_ppo
+from mmtrl_tpu_torch.scripts import (
+    brick_ppo,
+    c51_rom,
+    dqn_rom,
+    dt_rom,
+    evaluate,
+    rally_ppo,
+    skeleton_plus_ppo,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 # 2 envs x 8 steps a rollout, one minibatch, one epoch, small towers
@@ -28,6 +39,12 @@ TINY_DT = ["--cuda", "False", "--env-id", "rally_native", "--episode-steps", "60
            "--total-steps", "6", "--steps-per-dispatch", "3", "--warmup-steps", "2",
            "--max-timestep", "64", "--eval-steps", "140", "--target-return", "3",
            "--print-interval", "3"]
+# 2 pool envs, 30 pool steps: updates from pool step 8, every 2nd, target
+# syncs every 5th; a ring of 32 that wraps
+TINY_Q = ["--cuda", "False", "--num-envs", "2", "--episode-steps", "40", "--buffer-size", "32",
+          "--learning-starts", "16", "--batch-size", "4", "--train-frequency", "2",
+          "--target-network-frequency", "5", "--total-timesteps", "60", "--eval-steps", "0",
+          "--print-interval", "1"]
 
 
 @pytest.fixture(autouse=True)
@@ -110,11 +127,12 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
 
 
 @pytest.mark.parametrize("module,argv,error,match", [
-    (dt_rom, TINY_DT + ["--policy-from", "ck", "--policy-kind", "dqn"], NotImplementedError,
-     "ROADMAP A.6"),
-    (dt_rom, TINY_DT + ["--policy-from", "ck", "--policy-kind", "c51"], NotImplementedError,
-     "ROADMAP A.6"),
-    (skeleton_plus_ppo, ["--cuda", "False"], NotImplementedError, "ROADMAP A.7"),
+    (dt_rom, TINY_DT + ["--policy-from", "no_such_run", "--policy-kind", "dqn"],
+     FileNotFoundError, "no_such_run"),
+    (skeleton_plus_ppo, ["--cuda", "False", "--host-loop"], SystemExit,
+     "--host-loop requires --backend native"),
+    (dqn_rom, ["--cuda", "False", "--env-id", "skeleton_plus_native"], FileNotFoundError,
+     "SkelPlus.bin"),
     (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native"], NotImplementedError,
      "ROADMAP A.7"),
     (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native", "--host-loop"],
@@ -124,6 +142,79 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
 def test_unported_branches_and_the_missing_skeleton_rom_raise(module, argv, error, match):
     with pytest.raises(error, match=match):
         module.main(cli(module.Args, argv))
+
+
+@pytest.fixture(scope="module")
+def dqn_run(tmp_path_factory):
+    """dqn_rom saved, then resumed from the save with a greedy evaluation."""
+    tmp = tmp_path_factory.mktemp("dqn")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(tmp)
+        mp.setenv("MMTRL_RUN_ROOT", str(tmp / "runs"))
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            first = dqn_rom.main(cli(dqn_rom.Args, TINY_Q + ["--save-interval", "1",
+                                                            "--save-dir", "ck"]))
+            ckpt = str(tmp / "ck" / first["run_name"])
+            resumed = dqn_rom.main(cli(dqn_rom.Args, TINY_Q + [
+                "--total-timesteps", "20", "--load-from", ckpt, "--eval-steps", "10"]))
+        finally:
+            torch.set_num_threads(n)
+    return first, ckpt, resumed
+
+
+def test_dqn_rom_saves_resumes_and_evaluates(dqn_run):
+    first, ckpt, resumed = dqn_run
+    assert first["run_name"].startswith("rally_native__dqn_rom__")
+    # 30 pool steps; updates on pool steps 10, 12, ..., 28 (past 16 stored
+    # transitions), syncs on 0, 5, ..., 25
+    assert (first["global_step"], first["pool_steps"]) == (60, 30)
+    assert (first["updates"], first["target_syncs"]) == (10, 6)
+    assert math.isfinite(first["td_loss"]) and first["emulator_s"] > 0
+    payload = checkpoint.load_run(ckpt)
+    assert set(payload) == {"model", "target", "opt_state"}
+    assert int(payload["opt_state"]["count"]) == 10
+    # the last sync (pool step 25) came before the last updates
+    assert any(not torch.equal(payload["model"][k], payload["target"][k])
+               for k in payload["model"])
+    ts = resumed["runner"].train_state
+    # the resume restores the train state and refills a cold ring: in 10
+    # pool steps no even one has more than 16 transitions stored
+    assert int(ts.step) == 10 and resumed["updates"] == 0
+    assert all(torch.equal(p, payload["model"][k]) for k, p in ts.model.state_dict().items())
+    assert resumed["eval_pool_steps"] == 140 and resumed["eval_episodes"] >= 2
+    assert math.isfinite(resumed["eval_episodic_return"])
+
+
+def test_c51_rom_runs_and_dt_rom_collects_with_both_q_checkpoints(dqn_run, tmp_path):
+    out = c51_rom.main(cli(c51_rom.Args, TINY_Q + ["--save-interval", "1", "--save-dir", "ck"]))
+    assert (out["updates"], out["target_syncs"]) == (10, 6) and math.isfinite(out["td_loss"])
+    ts = out["runner"].train_state
+    assert ts.adam_eps == 0.01 / 4 and ts.learning_rate == 2.5e-4
+    c51_ckpt = str(tmp_path / "ck" / out["run_name"])
+    for kind, ckpt in (("dqn", dqn_run[1]), ("c51", c51_ckpt)):
+        dt = dt_rom.main(cli(dt_rom.Args, TINY_DT + ["--policy-from", ckpt, "--policy-kind", kind,
+                                                     "--total-steps", "3"]))
+        assert dt["behavior/episodes"] >= 2 and dt["train_steps"] == 3
+        assert math.isfinite(dt["dt/loss"]) and dt["eval/episodes"] >= 1
+
+
+def test_skeleton_plus_ppo_on_the_sim_and_evaluate():
+    """The default backend on the device simulator (casl, two audio
+    channels), saved, then evaluated greedily through ``scripts.evaluate``."""
+    out = skeleton_plus_ppo.main(cli(skeleton_plus_ppo.Args, TINY_PPO + [
+        "--total-timesteps", "32", "--save-interval", "2", "--save-dir", "ck"]))
+    assert out["run_name"].startswith("skeleton_plus__skeleton_plus_ppo__")
+    assert [r["update"] for r in out["history"]] == [1, 2]
+    assert math.isfinite(out["history"][-1]["losses/value_loss"])
+    model = out["runner"].model
+    assert model.audio_net.Conv_0.weight.shape[1] == 2 and model.input_scale == 1.0
+    res = evaluate.main(cli(evaluate.Args, [
+        "--cuda", "False", "--load-from", str(Path("ck") / out["run_name"]),
+        "--script", "skeleton_plus_ppo", "--env-id", "skeleton_plus", "--attn-type", "casl",
+        "--conv-size", "small", "--input-scale", "1", "--num-envs", "2", "--num-steps", "40"]))
+    assert res["eval/episodes"] >= 2 and math.isfinite(res["eval/episodic_return"])
 
 
 def _jax_script(name):
@@ -143,6 +234,11 @@ def _jax_script(name):
                    "0.25", "--eval-steps", "0"]),
     ("brick_ppo", ["--frameskip", "4", "--host-loop", "--seed", "3"]),
     ("skeleton_plus_ppo", ["--backend", "native", "--host-loop", "--rom-path", "x.bin"]),
+    ("skeleton_plus_ppo", ["--num-envs", "4", "--attn-type", "new", "--num-steps", "64",
+                           "--rom-path", "x.bin"]),
+    ("dqn_rom", ["--env-id", "brick_native", "--buffer-size", "5000", "--tau", "0.5",
+                 "--load-from", "ck"]),
+    ("c51_rom", ["--n-atoms", "21", "--v-min", "-5", "--learning-starts", "100"]),
     ("dt_rom", ["--env-id", "brick_native", "--moe-experts", "4", "--moe-dispatch", "gather",
                 "--policy-kind", "c51", "--rtg-clip", "5", "--policy-greedy"]),
 ])

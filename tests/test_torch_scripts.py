@@ -23,6 +23,7 @@ from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs import make
 from mmtrl_tpu_torch.scripts import (
+    dqn_rom,
     dt_minecraft,
     evaluate,
     minecraft_cnn,
@@ -197,7 +198,7 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 @pytest.mark.parametrize("module,argv,item", [
     (ppg, ["--env-id", "procmaze"], "A.7"),
     (evaluate, ["--script", "ppo"], "A.6"),
-    (evaluate, ["--script", "skeleton_plus_ppo"], "A.7"),
+    (dqn_rom, ["--track"], "A.9"),
     (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
 ])
 def test_unported_branches_name_their_roadmap_item(module, argv, item, in_tmp):
@@ -333,7 +334,8 @@ def test_metrics_writer_events_read_back(in_tmp):
 def test_registry_names_what_it_has():
     assert make("Minecraft2d", device="cpu").num_actions == 4
     with pytest.raises(KeyError, match="available: \\['brick_native', 'minecraft', 'minecraft2d', "
-                                      "'rally_native', 'skeleton_plus_native'\\]"):
+                                      "'rally_native', 'skeleton_plus', 'skeleton_plus_native', "
+                                      "'skeletonplus'\\]"):
         make("CartPole-v1", device="cpu")
 
 
