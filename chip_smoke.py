@@ -88,7 +88,22 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 syncs every 125 and 250 pool steps) and a greedy
                 evaluation; ``dt_rom --policy-kind dqn`` and ``c51`` from
                 their checkpoints, counting each kernel's launches.
-12. timing   -- each kernel, its plain version and the PyTorch call that
+12. classic  -- the discrete classic-control zoo: CartPole, Acrobot and
+                MountainCar card vs CPU from the same states and actions
+                (auto-resets and truncations included) and CartPole timed
+                alone; the sum-tree and the PER buffer card vs CPU under the
+                same uniforms, repeated leaves included (indices, tree and
+                largest priority bit for bit); the PER-weighted
+                ``dqn_td_update`` card vs CPU in float64 (1e-12);
+                ``dqn --prioritized-replay`` and ``c51`` through ``main`` at
+                full width on CartPole-v1, cut to 5,120 steps with updates
+                past 1,024, a ``--load-from`` resume of DQN equal bit for
+                bit to the run continued in memory and one profiled
+                iteration; ``ppo`` on CartPole-v1 (4 updates at its
+                defaults) and ``evaluate --script ppo`` on its checkpoint,
+                the model's first calls held against the CPU.  No kernel
+                lies on this path: the phase asserts zero launches.
+13. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -1383,7 +1398,9 @@ def _same_payload(a, b) -> bool:
         return a.keys() == b.keys() and all(_same_payload(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_same_payload(x, y) for x, y in zip(a, b))
-    return torch.equal(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b  # a number (a step count, a learning rate)
 
 
 def family_child(rnd_ckpt: str, result: str, *ckpts: str) -> None:
@@ -2001,6 +2018,326 @@ def phase_offpolicy_rom(smi: str, tmp: str):
     return restoring_flags(offpolicy_checks, smi, tmp)
 
 
+# The discrete classic-control zoo (ROADMAP A.6's discrete half): CartPole,
+# Acrobot and MountainCar on the card, DQN with PER and C51 through their
+# fused loops, PPO with the 64-64 tanh agent.  No kernel of the port lies on
+# this path (no attention).
+CLASSIC_ENVS = ("CartPole-v1", "Acrobot-v1", "MountainCar-v0")
+CLASSIC_ENV_BATCH = 64  # envs stepped together in the card-vs-CPU check
+CLASSIC_ENV_STEPS = 40
+# One step from the same float32 state on each device: CUDA's and the CPU's
+# float32 sin and cos may part by an ulp or two, which the step carries into
+# the state.  CartPole and MountainCar within 1e-6; Acrobot's four RK4
+# stages and velocities up to 9 pi within 1e-5.
+CLASSIC_STATE_ATOL = {"CartPole-v1": 1e-6, "Acrobot-v1": 1e-5, "MountainCar-v0": 1e-6}
+PER_CAPACITY = 16_384  # the default buffer of 10,000 rounded up to a power of two
+PER_BATCH = 128
+# The weighted TD update card vs CPU, float64 on both sides
+PER_TD_ATOL_FLOAT64 = 1e-12
+# The runs through main at full width (120-84 Q nets, batch 128, a ring of
+# 10,000; C51 on 101 atoms), cut in length: 5,120 of 500,000 steps (10
+# iterations of 512), updates past 1,024 (of 10,000) stored transitions
+# every 10th step (410), target syncs every 500 steps (10).  The cut total
+# also shortens epsilon's decay (to 2,560 steps) and PER's beta anneal.
+CLASSIC_Q_ARGS = ["--total-timesteps", "5120", "--learning-starts", "1024"]
+CLASSIC_Q_ITERS = 10
+# The DQN resume: 9 iterations saved, iteration 10 in memory and from the
+# checkpoint
+CLASSIC_RESUME_FIRST = ["--total-timesteps", "4608", "--learning-starts", "1024",
+                        "--save-interval", "9"]
+# PPO at the script's defaults (4 envs x 128 steps, 4 x 4 minibatches), 4
+# updates of 500,000 steps' worth
+CLASSIC_PPO_ARGS = ["--total-timesteps", "2048", "--save-interval", "4"]
+
+
+def classic_env_checks(smi: str):
+    """(a) Each env card vs CPU: 64 envs for 40 steps under random actions,
+    each step from the CPU's state (so a step's error is its own), the
+    card's auto-resets fed the CPU's reset draws."""
+    from mmtrl_tpu_torch.envs import make
+
+    g = torch.Generator().manual_seed(SEED)
+    for env_id in CLASSIC_ENVS:
+        tape = []
+
+        def record(n, generator, env=None):
+            out = env.draw_reset(n, generator)
+            tape.append(out)
+            return out
+
+        cpu = make(env_id, device="cpu")
+        cpu.sampler = lambda n, generator, env=cpu: record(n, generator, env)
+        card_env = make(env_id, device="cuda", sampler=lambda n, generator: tape.pop(0))
+        _, state = cpu.reset(CLASSIC_ENV_BATCH, g)
+        state.t[:8] = cpu.max_steps - 4  # 8 envs reach the time limit
+        tape.clear()
+        worst, dones, truncs = 0.0, 0, 0
+        flags_equal = True
+        for _ in range(CLASSIC_ENV_STEPS):
+            action = torch.randint(0, cpu.num_actions, (CLASSIC_ENV_BATCH,), generator=g)
+            card_state = type(state)(**{f.name: getattr(state, f.name).cuda()
+                                        for f in dataclasses.fields(state)})
+            obs, nxt, r, d, info = cpu.step(state, action, g)
+            c_obs, c_nxt, c_r, c_d, c_info = card_env.step(card_state, action.cuda())
+            flags_equal &= (torch.equal(d, c_d.cpu()) and torch.equal(r, c_r.cpu())
+                            and torch.equal(info["truncated"], c_info["truncated"].cpu()))
+            for a, b in [(obs, c_obs), (info["final_obs"], c_info["final_obs"])] + [
+                    (getattr(nxt, f.name), getattr(c_nxt, f.name))
+                    for f in dataclasses.fields(nxt)]:
+                worst = max(worst, (a.double() - b.cpu().double()).abs().max().item())
+            dones += int(d.sum())
+            truncs += int(info["truncated"].sum())
+            state = nxt
+        atol = CLASSIC_STATE_ATOL[env_id]
+        ok = flags_equal and worst <= atol and truncs > 0
+        emit("classic_env", env=env_id, envs=CLASSIC_ENV_BATCH, steps=CLASSIC_ENV_STEPS,
+             max_abs_err=worst, atol=atol, done_reward_truncated_equal=flags_equal,
+             dones=dones, truncated=truncs, card=smi, ok=ok)
+        check(ok, f"{env_id} card vs CPU: {worst} (flags equal: {flags_equal})")
+
+    # the card env alone: one step of 1 env (DQN's) and of 16, timed
+    from mmtrl_tpu_torch.envs.classic import CartPole
+
+    for n in (1, 16):
+        env = CartPole(device="cuda")
+        gc = torch.Generator(device="cuda").manual_seed(SEED)
+        _, s = env.reset(n, gc)
+        a = torch.zeros(n, dtype=torch.long, device="cuda")
+        for _ in range(20):
+            _, s, _, _, _ = env.step(s, a, gc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            _, s, _, _, _ = env.step(s, a, gc)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 200
+        _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+        emit("classic_env", env="CartPole-v1", timed_envs=n, ms_per_step=ms,
+             env_steps_per_s=n * 1e3 / ms, device_ops_per_step=ops, device_busy_ms=busy,
+             card=smi)
+
+
+def classic_per_checks(smi: str):
+    """(b) The sum-tree and the PER buffer card vs CPU, the same uniforms
+    and priorities, writes with repeated leaves: leaf indices equal, the
+    tree and the largest priority bit for bit, the IS weights reported."""
+    from mmtrl_tpu_torch.data.buffers import PrioritizedReplayBuffer, SumTree
+
+    g = torch.Generator().manual_seed(SEED)
+    sides = {"cpu": "cpu", "card": "cuda"}  # label: device
+    trees = {label: SumTree.create(PER_CAPACITY, d) for label, d in sides.items()}
+    same_idx = True
+    for _ in range(8):
+        idx = torch.randint(0, PER_CAPACITY, (4096,), generator=g)
+        idx[100:200] = idx[0]  # one leaf written 101 times: the last value stands
+        vals = torch.rand(4096, generator=g) * 3
+        u = torch.rand(PER_BATCH, generator=g)
+        for label, tree in trees.items():
+            tree.update(idx.to(sides[label]), vals.to(sides[label]))
+        picks = [tree.sample(None, PER_BATCH, u.to(sides[label])).cpu()
+                 for label, tree in trees.items()]
+        same_idx &= torch.equal(*picks)
+    same_tree = torch.equal(trees["cpu"].nodes, trees["card"].nodes.cpu())
+    last_ok = trees["cpu"].get(idx[:1]).item() == vals[199].item()
+    emit("classic_per", check="SumTree update and sample card vs cpu", capacity=PER_CAPACITY,
+         leaf_indices_equal=same_idx, tree_bit_for_bit=same_tree,
+         repeated_leaf_keeps_last=last_ok, card=smi, ok=same_idx and same_tree and last_ok)
+    check(same_idx and same_tree and last_ok, "SumTree: the card and the CPU part")
+
+    example = dict(obs=torch.zeros(4), action=torch.zeros((), dtype=torch.long),
+                   reward=torch.zeros(()), next_obs=torch.zeros(4), done=torch.zeros(()))
+    bufs = {label: PrioritizedReplayBuffer.create({k: v.to(d) for k, v in example.items()},
+                                                  10_000) for label, d in sides.items()}
+    same_idx, weights_err = True, 0.0
+    for r in range(40):  # 40 x 512 = 20,480 transitions: the ring of 16,384 wraps
+        batch = dict(obs=torch.randn(512, 4, generator=g),
+                     action=torch.randint(0, 2, (512,), generator=g),
+                     reward=torch.ones(512), next_obs=torch.randn(512, 4, generator=g),
+                     done=(torch.rand(512, generator=g) < 0.05).float())
+        u = torch.rand(PER_BATCH, generator=g)
+        prio = torch.rand(PER_BATCH, generator=g) * 4
+        out = {}
+        for label, buf in bufs.items():
+            d = sides[label]
+            buf.add_batch({k: v.to(d) for k, v in batch.items()}, 512)
+            b, idx, w = buf.sample(None, PER_BATCH, 0.4 + 0.015 * r, u.to(d))
+            idx = idx.clone()
+            idx[1::16] = idx[0]  # repeated leaves in the priority write
+            buf.update_priorities(idx, prio.to(d))
+            out[label] = (idx.cpu(), w.cpu(), b["obs"].cpu())
+        same_idx &= torch.equal(out["cpu"][0], out["card"][0]) and torch.equal(
+            out["cpu"][2], out["card"][2])
+        weights_err = max(weights_err, (out["cpu"][1] - out["card"][1]).abs().max().item())
+    same_tree = torch.equal(bufs["cpu"].tree.nodes, bufs["card"].tree.nodes.cpu())
+    same_max = torch.equal(bufs["cpu"].max_priority, bufs["card"].max_priority.cpu())
+    ok = same_idx and same_tree and same_max and bufs["card"].buffer.capacity == PER_CAPACITY
+    emit("classic_per", check="PrioritizedReplayBuffer card vs cpu", writes=40 * 512,
+         capacity=bufs["card"].buffer.capacity, batch=PER_BATCH, leaf_indices_equal=same_idx,
+         tree_bit_for_bit=same_tree, max_priority_equal=same_max,
+         is_weights_max_abs_err=weights_err, card=smi, ok=ok)
+    check(ok, "PrioritizedReplayBuffer: the card and the CPU part")
+
+
+def classic_td_check(smi: str):
+    """(c) ``dqn_td_update`` with PER weights on the full-width 120-84 Q
+    net, batch 128, card vs CPU in float64."""
+    import copy
+
+    from mmtrl_tpu_torch.algos.offpolicy import create_dqn_state, dqn_td_update
+    from mmtrl_tpu_torch.models.agents import QNetwork
+
+    g = torch.Generator().manual_seed(SEED)
+    batch = dict(obs=torch.randn(PER_BATCH, 4, generator=g),
+                 action=torch.randint(0, 2, (PER_BATCH,), generator=g),
+                 reward=torch.ones(PER_BATCH), next_obs=torch.randn(PER_BATCH, 4, generator=g),
+                 done=(torch.rand(PER_BATCH, generator=g) < 0.1).float())
+    weights = torch.rand(PER_BATCH, generator=g) * 0.9 + 0.1
+    net, net_cpu = card_and_cpu(lambda d: QNetwork(2, obs_shape=(4,), device=d))
+    torch.manual_seed(SEED + 1)
+    target = QNetwork(2, obs_shape=(4,), device="cpu")  # another init: a target apart
+    runs = {}
+    for label, device, dtype in (("card64", "cuda", torch.float64), ("cpu64", "cpu", torch.float64),
+                                 ("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32)):
+        ts = create_dqn_state(copy.deepcopy(net).to(device, dtype), 2.5e-4)
+        ts.target.load_state_dict(target.state_dict())
+        b = {k: (v.to(dtype) if v.is_floating_point() else v).to(device) for k, v in batch.items()}
+        ts, loss, q, td = dqn_td_update(0.99, ts, b, weights.to(device, dtype))
+        runs[label] = (ts.model, float(loss), td.cpu())
+    err, at = param_err([runs["card64"][0]], [runs["cpu64"][0]])
+    td_err = (runs["card64"][2] - runs["cpu64"][2]).abs().max().item()
+    moved = param_err([runs["cpu64"][0]], [net_cpu])[0]
+    ok = err <= PER_TD_ATOL_FLOAT64 and td_err <= PER_TD_ATOL_FLOAT64 and moved > 0
+    emit("classic_td_update", batch_size=PER_BATCH, worst_param_abs_err=err, worst_param=at,
+         td_abs_err=td_err, atol=PER_TD_ATOL_FLOAT64, largest_param_move=moved,
+         loss_float64_card_cpu=[runs["card64"][1], runs["cpu64"][1]],
+         float32_card_vs_cpu=param_err([runs["card"][0]], [runs["cpu"][0]])[0],
+         loss_float32_card_cpu=[runs["card"][1], runs["cpu"][1]], card=smi, ok=ok)
+    check(ok, f"weighted dqn_td_update card vs CPU in float64: {err} at {at}, |td| {td_err}")
+
+
+def classic_q_runs(smi: str, tmp: str):
+    """(d) ``dqn --prioritized-replay`` and ``c51`` through ``main`` at
+    full width on CartPole-v1, then the DQN resume against the run
+    continued in memory, bit for bit, and one profiled iteration."""
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import c51, dqn
+
+    save_dir = os.path.join(tmp, "classic_ck")
+    for name, module, extra in (("dqn --prioritized-replay", dqn, ["--prioritized-replay"]),
+                                ("c51", c51, [])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = module.main(cli(module.Args, CLASSIC_Q_ARGS + extra))
+        wall = time.perf_counter() - t0
+        hist = out["history"]
+        loss_key = "losses/td_loss" if module is dqn else "losses/loss"
+        train_s = sum(r["wall_s"] for r in hist)
+        emit("classic_q", run=name, iterations=len(hist), global_step=out["global_step"],
+             wall_s=wall, train_s=train_s, eval_s=out["eval_s"],
+             env_steps_per_s=out["global_step"] / train_s,
+             wall_per_iteration_s=[r["wall_s"] for r in hist],
+             last_step_losses=[r[loss_key] for r in hist],
+             q_values=[r["losses/q_values"] for r in hist],
+             episodic_return=out["episodic_return"], eval_return=out["eval_episodic_return"],
+             eval_episodes=out["eval_episodes"],
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        runner = out["runner"]
+        check(len(hist) == CLASSIC_Q_ITERS and out["global_step"] == 512 * CLASSIC_Q_ITERS,
+              f"{name}: {len(hist)} iterations")
+        # 410 updates; iterations 5 and 10 end on a training step
+        check(int(runner.train_state.step) == 410, f"{name}: {int(runner.train_state.step)} updates")
+        check(all(math.isfinite(r[loss_key]) and math.isfinite(r["losses/q_values"])
+                  for r in hist) and hist[-1][loss_key] != 0.0, f"{name}: losses {hist}")
+        check(out["eval_episodes"] >= 16, f"{name}: {out['eval_episodes']} evaluation episodes")
+
+    # the resume: 9 iterations saved; iteration 10 in memory and from the
+    # checkpoint through --load-from, equal bit for bit
+    extra = ["--prioritized-replay", "--save-dir", save_dir]
+    first = dqn.main(cli(dqn.Args, CLASSIC_RESUME_FIRST + extra))
+    args = cli(dqn.Args, CLASSIC_Q_ARGS + ["--prioritized-replay"])
+    algo, _, _, _ = dqn.build(args)
+    in_memory, _ = algo.train_iteration(first["runner"])
+    resumed = dqn.main(cli(dqn.Args, CLASSIC_Q_ARGS + extra + [
+        "--load-from", os.path.join(save_dir, first["run_name"])]))
+    mine, theirs = in_memory.payload(), resumed["runner"].payload()
+    differing = [k for k in mine if not _same_payload(mine[k], theirs[k])]
+    emit("classic_q", run="dqn --prioritized-replay resume", initial_iteration=resumed[
+        "initial_iteration"], differing_fields=differing, card=smi)
+    check(resumed["initial_iteration"] == CLASSIC_Q_ITERS and not differing,
+          f"the resumed DQN run differs from iteration 10 in memory in {differing}")
+
+    # one more iteration, profiled
+    algo.train_iteration(in_memory)  # warm
+    (_, _), wall, ops, busy, top = device_profile(lambda: algo.train_iteration(in_memory))
+    emit("classic_q", run="dqn --prioritized-replay profiled iteration", env_steps=512,
+         wall_s=wall, device_ops=ops, device_ops_per_env_step=ops / 512, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+
+def classic_ppo_run(smi: str, tmp: str):
+    """(e) ``ppo`` on CartPole-v1 for 4 updates at its defaults, then
+    ``evaluate --script ppo`` from its checkpoint, the model's first calls
+    held against the checkpoint loaded on the CPU."""
+    import os
+
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs import make
+    from mmtrl_tpu_torch.scripts import evaluate, ppo
+
+    save_dir = os.path.join(tmp, "classic_ck")
+    torch.cuda.reset_peak_memory_stats()
+    out = ppo.main(cli(ppo.Args, CLASSIC_PPO_ARGS + ["--save-dir", save_dir]))
+    for row in out["history"]:
+        emit("classic_ppo", run="scripts.ppo CartPole-v1", **row, card=smi)
+    emit("classic_ppo", run="scripts.ppo CartPole-v1", sps_of_run=out["sps"],
+         updates=len(out["history"]), card=smi)
+    check(len(out["history"]) == 4 and all(
+        math.isfinite(v) for row in out["history"] for k, v in row.items()
+        if k.startswith("losses/")), "ppo: non-finite losses")
+    ckpt = os.path.join(save_dir, out["run_name"])
+    args = cli(evaluate.Args, ["--script", "ppo", "--env-id", "CartPole-v1", "--load-from", ckpt])
+    t0 = time.perf_counter()
+    result, calls = evaluate_recording_calls(evaluate, args, EVAL_CHECK_CALLS)
+    wall = time.perf_counter() - t0
+    ref, _ = evaluate.build_model(args, make(args.env_id, device="cpu"), "cpu")
+    ref.load_state_dict(load_run(ckpt, map_location="cpu")["model"])
+    with torch.no_grad():
+        wants = [ref(*inputs)[0] for inputs, _ in calls]
+    err = max((logits - want).abs().max().item() for (_, logits), want in zip(calls, wants))
+    scale = max(want.abs().max().item() for want in wants)
+    emit("classic_ppo", run="scripts.evaluate --script ppo", wall_s=wall, **result,
+         calls_checked=len(calls), logits_max_abs_err_vs_cpu=err, logits_max_abs=scale,
+         tol_of_max=PPO_AGENT_TOL_OF_MAX, card=smi)
+    check(len(calls) == EVAL_CHECK_CALLS and err <= PPO_AGENT_TOL_OF_MAX * scale,
+          f"evaluate --script ppo: the card's logits are {err} from the CPU's (largest {scale})")
+    check(result["eval/episodes"] >= args.num_envs, "evaluate --script ppo: too few episodes")
+
+
+def classic_checks(smi: str, tmp: str):
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    t0 = time.perf_counter()
+    for step in (classic_env_checks, classic_per_checks, classic_td_check):
+        step(smi)
+    classic_q_runs(smi, tmp)
+    classic_ppo_run(smi, tmp)
+    emit("classic", seconds=time.perf_counter() - t0, card=smi)
+
+
+def phase_classic(smi: str, tmp: str):
+    """The discrete classic-control zoo: (a) the three envs card vs CPU,
+    (b) the sum-tree and PER buffer card vs CPU bit for bit, (c) the
+    weighted TD update card vs CPU in float64, (d) dqn --prioritized-replay
+    and c51 through main with the DQN resume bit for bit and a profiled
+    iteration, (e) ppo on CartPole-v1 and evaluate --script ppo.  No kernel
+    of the port lies on this path."""
+    restoring_flags(classic_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -2077,6 +2414,11 @@ def main() -> int:
         rom_launches = phase_rom(smi, tmp)
         phase_skeleton(smi, tmp)
         q_launches = phase_offpolicy_rom(smi, tmp)
+        reset_counts()
+        phase_classic(smi, tmp)
+        classic_launches = read_counts()
+        check(not any(classic_launches.values()),
+              f"the classic phase launched attention kernels: {classic_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -2096,6 +2438,8 @@ def main() -> int:
             # dt_rom from the Q checkpoints (the value-learning slice)
             "dqn_dt_launches": q_launches["dqn"][name],
             "c51_dt_launches": q_launches["c51"][name],
+            # the classic-control slice: no attention on its path
+            "classic_launches": classic_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """C51, the categorical DQN: its configuration, the projection of the
-target distribution and the TD update; port of ``C51Config``,
-``categorical_projection`` and ``c51_td_update`` in
-``mmtrl_tpu/algos/offpolicy/c51.py`` (the reference's
-c51_atari_jax.py:219-239).
+target distribution, the TD update and the fused loop on the device; port
+of ``mmtrl_tpu/algos/offpolicy/c51.py`` (the reference's cleanrl/c51.py
+and c51_atari_jax.py:219-239).  ``make_c51`` is ``make_dqn``'s loop
+(``dqn.make_value_loop``) with C51's greedy rule, update and Adam eps
+(0.01 / batch_size), on the uniform ring.
 
 The projection is the JAX package's dense one-hot sum over a (B, n_atoms,
 n_atoms) product rather than a scatter: on the card a float scatter-add
@@ -13,16 +14,27 @@ would not give the same bits twice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
-from mmtrl_tpu_torch.algos.offpolicy.dqn import Batch, DQNTrainState, adam_step
+from mmtrl_tpu_torch.algos.offpolicy.common import OffPolicyRunner
+from mmtrl_tpu_torch.algos.offpolicy.dqn import (
+    Batch,
+    DQNTrainState,
+    OffPolicyAlgo,
+    adam_step,
+    make_value_loop,
+)
+from mmtrl_tpu_torch.data.buffers import ReplayBuffer
+from mmtrl_tpu_torch.envs.base import Environment
 
 
 @dataclasses.dataclass
 class C51Config:
-    """The host loop's fields of the JAX ``C51Config``, its defaults."""
+    """Field for field the JAX ``C51Config`` and its defaults.  The
+    cartridge host loop does not read ``steps_per_iteration``."""
 
     total_timesteps: int = 500_000
     learning_rate: float = 2.5e-4
@@ -39,6 +51,11 @@ class C51Config:
     exploration_fraction: float = 0.5
     learning_starts: int = 10_000
     train_frequency: int = 10
+    steps_per_iteration: int = 512  # env steps of one train_iteration
+
+    @property
+    def num_iterations(self) -> int:
+        return self.total_timesteps // (self.steps_per_iteration * self.num_envs)
 
 
 def categorical_projection(reward: torch.Tensor, done: torch.Tensor, next_pmf: torch.Tensor,
@@ -86,3 +103,19 @@ def c51_td_update(atoms: torch.Tensor, gamma: float, ts: DQNTrainState, batch: B
     q_a = (pmf_a * atoms).sum(-1)
     ts = adam_step(ts, loss)
     return ts, loss.detach(), q_a.mean().detach()
+
+
+def make_c51(env: Environment, model: nn.Module, cfg: C51Config) -> OffPolicyAlgo:
+    """C51's fused loop; ``model(obs) -> probabilities (B, A, n_atoms)`` on
+    the env's device, over ``n_atoms`` atoms evenly spaced on [v_min,
+    v_max].  A step's ``StepDraws.sample_idx`` replaces the replay
+    indices."""
+    atoms = torch.linspace(cfg.v_min, cfg.v_max, cfg.n_atoms, device=env.device)
+
+    def update_fn(runner: OffPolicyRunner, sample_draw: Optional[torch.Tensor]):
+        batch = runner.buffer.sample(runner.generator, cfg.batch_size, sample_draw)
+        return c51_td_update(atoms, cfg.gamma, runner.train_state, batch)
+
+    return make_value_loop(env, model, cfg, expected_q_greedy(atoms), update_fn,
+                           lambda example: ReplayBuffer.create(example, cfg.buffer_size),
+                           "losses/loss", adam_eps=0.01 / cfg.batch_size)

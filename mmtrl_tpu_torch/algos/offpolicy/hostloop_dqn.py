@@ -42,10 +42,11 @@ import torch
 from torch import nn
 
 from mmtrl_tpu_torch.algos.hostpool import HostPool
-from mmtrl_tpu_torch.algos.offpolicy.common import linear_epsilon
+from mmtrl_tpu_torch.algos.offpolicy.common import StepDraws, linear_epsilon
 from mmtrl_tpu_torch.algos.offpolicy.dqn import (
     DQNConfig,
     DQNTrainState,
+    argmax_q,
     create_dqn_state,
     dqn_td_update,
     sync_target,
@@ -69,24 +70,10 @@ class DQNHostRunner:
     global_step: int = 0  # env transitions stored
 
 
-class StepDraws(NamedTuple):
-    """One pool step's draws, for a test to replay another implementation's:
-    the random actions, the uniforms compared with epsilon, and the replay
-    indices of the update (None when the step does not train)."""
-
-    random_action: torch.Tensor
-    explore_u: torch.Tensor
-    sample_idx: Optional[torch.Tensor]
-
-
 class DQNHostLoop(NamedTuple):
     init_runner: Callable[[torch.Generator], DQNHostRunner]
     step_fn: Callable[..., Tuple[DQNHostRunner, torch.Tensor, Dict[str, Any]]]
     act_greedy: Callable[[nn.Module, torch.Tensor], torch.Tensor]
-
-
-def argmax_q(model: nn.Module, obs: torch.Tensor) -> torch.Tensor:
-    return model(obs).argmax(dim=-1)
 
 
 def make_dqn_hostloop(env, model: nn.Module, cfg: DQNConfig, greedy_fn: Optional[GreedyFn] = None,

@@ -105,9 +105,12 @@ def runner_payload(x: Any) -> Any:
     tensors, lists and dicts on the CPU, loadable with
     ``torch.load(weights_only=True)``: a module as its state dict, a
     generator as its state, an Adam state as ``{count, mu, nu}``, a
-    dataclass as a dict of its fields, a tuple as a list."""
-    if x is None:
-        return None
+    dataclass as a dict of its fields, a tuple as a list; numbers and
+    dicts (of any of these) as they are."""
+    if x is None or isinstance(x, (int, float)):
+        return x
+    if isinstance(x, dict):
+        return {k: runner_payload(v) for k, v in x.items()}
     if isinstance(x, torch.Tensor):
         return _cpu(x)
     if isinstance(x, nn.Module):
@@ -129,6 +132,10 @@ def load_runner_payload(template: Any, payload: Any) -> Any:
     its template's device; modules and generators are loaded in place."""
     if template is None:
         return None
+    if isinstance(template, (int, float)):
+        return type(template)(payload)
+    if isinstance(template, dict):
+        return {k: load_runner_payload(v, payload[k]) for k, v in template.items()}
     if isinstance(template, torch.Tensor):
         return payload.to(template.device)
     if isinstance(template, nn.Module):

@@ -1,17 +1,19 @@
 """Environment registry: ``make(env_id)`` like the reference's make_env
 thunks; port of ``mmtrl_tpu/envs/registry.py``.  Ported so far:
-Minecraft2d, the Skeleton+ device simulator (``skeleton_plus``) and the
-native 2600 cartridges (``rally_native``, ``brick_native``,
-``skeleton_plus_native``, the last needing SkelPlus.bin, which is not in
-the repository).  ``make`` passes its keyword arguments to the env
-(``device``, ``use_audio``, the simulator's samplers; the native envs'
-``num_envs``, ``rom_path``, ``seed``, ...)."""
+Minecraft2d, the discrete classic-control envs (``CartPole-v1``,
+``Acrobot-v1``, ``MountainCar-v0``), the Skeleton+ device simulator
+(``skeleton_plus``) and the native 2600 cartridges (``rally_native``,
+``brick_native``, ``skeleton_plus_native``, the last needing SkelPlus.bin,
+which is not in the repository).  ``make`` passes its keyword arguments to
+the env (``device``, ``use_audio``, the classic envs' and the simulator's
+samplers; the native envs' ``num_envs``, ``rom_path``, ``seed``, ...)."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from mmtrl_tpu_torch.envs.base import Environment
+from mmtrl_tpu_torch.envs.classic import Acrobot, CartPole, MountainCar
 from mmtrl_tpu_torch.envs.homebrew_native import NativeBrick, NativeHomebrew
 from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
 from mmtrl_tpu_torch.envs.skeleton_native import NativeSkeletonPlus
@@ -29,6 +31,9 @@ def register(*names: str):
     return deco
 
 
+register("CartPole-v1", "CartPole")(CartPole)
+register("Acrobot-v1", "Acrobot")(Acrobot)
+register("MountainCar-v0", "MountainCar")(MountainCar)
 register("minecraft", "Minecraft2d")(Minecraft2d)
 register("skeleton_plus", "SkeletonPlus")(SkeletonPlusSim)
 register("skeleton_plus_native")(NativeSkeletonPlus)
@@ -36,8 +41,14 @@ register("rally_native")(NativeHomebrew)
 register("brick_native")(NativeBrick)
 
 
+# Registered by the JAX package, not ported yet: the ROADMAP item for each.
+UNPORTED = {"pendulum-v1": "A.6", "pendulum": "A.6"}
+
+
 def make(env_id: str, **kwargs) -> Environment:
     key = env_id.lower()
+    if key in UNPORTED:
+        raise NotImplementedError(f"env {env_id!r} is not ported yet (ROADMAP {UNPORTED[key]})")
     if key not in registry:
         raise KeyError(f"unknown env {env_id!r}; available: {sorted(registry)}")
     return registry[key](**kwargs)

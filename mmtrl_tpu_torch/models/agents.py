@@ -1,5 +1,5 @@
 """Actor-critic agents and Q networks; port of ``MultimodalRecurrentAgent``,
-``RecurrentAgent``, ``CNNAgent``, ``QNetwork`` and
+``RecurrentAgent``, ``CNNAgent``, ``MLPActorCritic``, ``QNetwork`` and
 ``DistributionalQNetwork`` of ``mmtrl_tpu/models/agents.py``.
 
 One call of a recurrent agent takes a whole (T, B, ...) window: the
@@ -176,6 +176,25 @@ class CNNAgent(nn.Module):
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         feat = self.network(obs / self.input_scale)
         return self.actor(feat), self.critic(feat)[..., 0]
+
+
+class MLPActorCritic(nn.Module):
+    """Separate 64-64 tanh actor and critic for vector observations, the
+    reference's cleanrl/ppo.py Agent: obs (N, obs_dim) -> logits (N, A),
+    value (N,)."""
+
+    def __init__(self, num_actions: int, obs_dim: int, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.actor_trunk = MLPTower(obs_dim, device=device)
+        self.actor_out = Dense(self.actor_trunk.feature_size, num_actions, scale=0.01,
+                               device=device)
+        self.critic_trunk = MLPTower(obs_dim, device=device)
+        self.critic_out = Dense(self.critic_trunk.feature_size, 1, scale=1.0, device=device)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.actor_out(self.actor_trunk(obs)),
+                self.critic_out(self.critic_trunk(obs))[..., 0])
 
 
 def _lecun_dense(in_features: int, out_features: int, device: torch.device) -> Dense:

@@ -98,6 +98,13 @@ def ppo_config_from(args, **overrides) -> PPOConfig:
     return PPOConfig(**base)
 
 
+def config_of(cls, args):
+    """The dataclass ``cls`` from the fields of ``args`` of the same names;
+    the others keep their defaults."""
+    return cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(cls)
+                  if hasattr(args, f.name)})
+
+
 def device_from(args) -> torch.device:
     """``--cuda`` (the default) -> the card, raising without one; else the
     CPU.  Applies ``--torch-deterministic`` as the reference does."""

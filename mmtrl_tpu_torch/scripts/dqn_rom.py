@@ -27,7 +27,7 @@ from mmtrl_tpu_torch.algos.offpolicy.hostloop_dqn import run_dqn_hostloop
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
 from mmtrl_tpu_torch.models.agents import QNetwork
-from mmtrl_tpu_torch.scripts._common import device_from, field, seeded
+from mmtrl_tpu_torch.scripts._common import config_of, device_from, field, seeded
 
 
 @dataclasses.dataclass
@@ -72,7 +72,7 @@ class Args:
 
 
 def config_from(args) -> DQNConfig:
-    return DQNConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(DQNConfig)})
+    return config_of(DQNConfig, args)
 
 
 def setup(args):

@@ -9,14 +9,16 @@ the checkpoint's model (``RunnerState.payload()["model"]``) is loaded into
 a freshly built agent.  ``--script skeleton_plus_ppo`` rebuilds the
 two-tower agent on the env's audio channels (two on ``skeleton_plus``,
 the device simulator); give its ``--attn-type`` and ``--input-scale 1``,
-as for the JAX script.  ``--script ppo`` (the classic-control MLP agent)
-waits for ROADMAP A.6, and ``--env-id skeleton_plus_native`` (the native
-pool in the device loop, through JAX's ``io_callback``) for A.7: both
-raise.  The cartridge runs' greedy evaluation is the host loops'
-``--eval-steps``.
+as for the JAX script.  ``--script ppo`` rebuilds the classic-control MLP
+agent on the env's observation width.  ``--env-id skeleton_plus_native``
+(the native pool in the device loop, through JAX's ``io_callback``) waits
+for ROADMAP A.7 and raises.  The cartridge runs' greedy evaluation is the
+host loops' ``--eval-steps``; DQN's and C51's is their runner's.
 
     python -m mmtrl_tpu_torch.scripts.evaluate --load-from saved_agents/<run_name> \\
         --script skeleton_plus_ppo --env-id skeleton_plus --attn-type casl --input-scale 1
+    python -m mmtrl_tpu_torch.scripts.evaluate --load-from saved_agents/<run_name> \\
+        --script ppo --env-id CartPole-v1
 """
 
 import dataclasses
@@ -27,7 +29,7 @@ import torch
 from mmtrl_tpu_torch.core.checkpoint import load_run
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.envs import make
-from mmtrl_tpu_torch.models.agents import CNNAgent, MultimodalRecurrentAgent
+from mmtrl_tpu_torch.models.agents import CNNAgent, MLPActorCritic, MultimodalRecurrentAgent
 from mmtrl_tpu_torch.scripts._common import device_from, field
 from mmtrl_tpu_torch.utils.evaluate import evaluate_policy
 
@@ -64,8 +66,8 @@ def build_model(args, env, device):
                         input_scale=args.input_scale,
                         in_channels=env.observation_space.shape[0], device=device), False
     if args.script == "ppo":
-        raise NotImplementedError("--script ppo: the classic-control MLP agent and its envs "
-                                  "are not ported yet (ROADMAP A.6)")
+        return MLPActorCritic(env.num_actions, env.observation_space.shape[0],
+                              device=device), False
     raise SystemExit(f"unknown --script {args.script!r}")
 
 

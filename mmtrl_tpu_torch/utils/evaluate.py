@@ -1,18 +1,18 @@
 """Trained-policy evaluation, the reference's cleanrl_utils/evals role;
-port of ``evaluate_policy`` of ``mmtrl_tpu/utils/evaluate.py``.
+port of ``mmtrl_tpu/utils/evaluate.py``.
 
 Runs a policy greedily (or sampling) in the batched env on the model's
 device for a fixed number of steps and reports episode statistics.  Works
 with feedforward ``model(obs) -> (logits, value, ...)`` and recurrent
 ``model(obs[T, B], done[T, B], carry) -> (logits, value, carry)`` agents.
 One ``torch.Generator`` drives the reset draws and, when sampling, the
-actions.  ``evaluate_actions`` (the off-policy zoo's action rules) waits
-for that zoo (ROADMAP A.6).
+actions.  ``evaluate_actions`` is the off-policy trainers' final greedy
+evaluation, generic over the action rule.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -46,6 +46,29 @@ def evaluate_policy(
         action = logits.argmax(dim=-1) if greedy else categorical_sample(generator, logits)
         obs, env_state, reward, done, _ = env.step(env_state, action, generator)
         stats = stats.update(reward, done)
+    return {
+        "eval/episodic_return": stats.mean_return,
+        "eval/episodic_length": stats.mean_length,
+        "eval/episodes": stats.episode_count,
+    }
+
+
+@torch.no_grad()
+def evaluate_actions(
+    env: Environment,
+    act_fn: Callable[[torch.Tensor], torch.Tensor],
+    generator: torch.Generator,
+    num_envs: int = 16,
+    num_steps: int = 1000,
+) -> Dict[str, torch.Tensor]:
+    """``num_steps`` steps of ``num_envs`` envs under ``act_fn(obs) ->
+    action``: argmax-Q for DQN, the expected-Q argmax for C51.  Episode
+    returns take the env's ``raw_reward`` where it reports one."""
+    obs, env_state = env.reset(num_envs, generator)
+    stats = EpisodeStatistics.create(num_envs, obs.device)
+    for _ in range(num_steps):
+        obs, env_state, reward, done, info = env.step(env_state, act_fn(obs), generator)
+        stats = stats.update(info.get("raw_reward", reward), done)
     return {
         "eval/episodic_return": stats.mean_return,
         "eval/episodic_length": stats.mean_length,

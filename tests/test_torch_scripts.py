@@ -197,7 +197,7 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 @pytest.mark.parametrize("module,argv,item", [
     (ppg, ["--env-id", "procmaze"], "A.7"),
-    (evaluate, ["--script", "ppo"], "A.6"),
+    (evaluate, ["--script", "ppo", "--env-id", "Pendulum-v1"], "A.6"),
     (dqn_rom, ["--track"], "A.9"),
     (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
 ])
@@ -333,10 +333,13 @@ def test_metrics_writer_events_read_back(in_tmp):
 
 def test_registry_names_what_it_has():
     assert make("Minecraft2d", device="cpu").num_actions == 4
-    with pytest.raises(KeyError, match="available: \\['brick_native', 'minecraft', 'minecraft2d', "
-                                      "'rally_native', 'skeleton_plus', 'skeleton_plus_native', "
+    assert make("CartPole-v1", device="cpu").num_actions == 2
+    with pytest.raises(KeyError, match="available: \\['acrobot', 'acrobot-v1', 'brick_native', "
+                                      "'cartpole', 'cartpole-v1', 'minecraft', 'minecraft2d', "
+                                      "'mountaincar', 'mountaincar-v0', 'rally_native', "
+                                      "'skeleton_plus', 'skeleton_plus_native', "
                                       "'skeletonplus'\\]"):
-        make("CartPole-v1", device="cpu")
+        make("doorpuzzle", device="cpu")
 
 
 def test_python_m_entry_imports_no_jax(in_tmp):
