@@ -103,7 +103,23 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 defaults) and ``evaluate --script ppo`` on its checkpoint,
                 the model's first calls held against the CPU.  No kernel
                 lies on this path: the phase asserts zero launches.
-13. timing   -- each kernel, its plain version and the PyTorch call that
+13. continuous -- the continuous half of classic control: Pendulum and the
+                scripts' wrapper stack (``ClipAction``,
+                ``NormalizeObservation``, ``NormalizeReward``, per-env
+                statistics) card vs CPU from the same states, actions and
+                reset draws, Pendulum timed alone; one
+                ``make_continuous_ppo`` update with RPO at the defaults'
+                shapes and one DDPG, TD3 and SAC update at batch 256 (the
+                actor, alpha and Polyak passes included) card vs CPU in
+                float64; ``ppo`` and ``rpo_continuous_action`` through
+                ``main`` at their defaults (4 x 2,048 steps, 32 x 10
+                minibatches), 2 updates each with a save, a third profiled;
+                ``ddpg``, ``td3`` and ``sac_continuous_action`` at full width
+                cut to 2,048 steps with updates past 1,024 and a greedy
+                evaluation, the next 128 steps of each profiled, SAC's
+                ``--load-from`` resume equal bit for bit to those steps in
+                memory.  No kernel lies on this path: zero launches.
+14. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -2018,10 +2034,10 @@ def phase_offpolicy_rom(smi: str, tmp: str):
     return restoring_flags(offpolicy_checks, smi, tmp)
 
 
-# The discrete classic-control zoo (ROADMAP A.6's discrete half): CartPole,
-# Acrobot and MountainCar on the card, DQN with PER and C51 through their
-# fused loops, PPO with the 64-64 tanh agent.  No kernel of the port lies on
-# this path (no attention).
+# The discrete classic-control zoo: CartPole, Acrobot and MountainCar on the
+# card, DQN with PER and C51 through their fused loops, PPO with the 64-64
+# tanh agent (Pendulum and the continuous algorithms: the continuous phase).
+# No kernel of the port lies on this path (no attention).
 CLASSIC_ENVS = ("CartPole-v1", "Acrobot-v1", "MountainCar-v0")
 CLASSIC_ENV_BATCH = 64  # envs stepped together in the card-vs-CPU check
 CLASSIC_ENV_STEPS = 40
@@ -2338,6 +2354,404 @@ def phase_classic(smi: str, tmp: str):
     restoring_flags(classic_checks, smi, tmp)
 
 
+# The continuous half of classic control (ROADMAP A.6): Pendulum on the
+# card, the continuous-action wrappers, PPO and RPO with a Gaussian policy,
+# and DDPG, TD3 and SAC through their fused loops.  No kernel of the port
+# lies on this path (no attention).
+CONT_ENV_BATCH = 64  # envs stepped together in the card-vs-CPU checks
+CONT_ENV_STEPS = 40
+# One step from the same float32 state on each device: CUDA's and the CPU's
+# float32 sin and cos may part by an ulp or two, which the step carries into
+# the state (velocities up to 8); the cost (up to 16.3) within two roundings.
+CONT_STATE_ATOL = 1e-6
+CONT_REWARD_ATOL = 1e-5
+# The wrappers' per-env statistics and scaled rewards, each within this
+# share of its tensor's largest magnitude (at least 1); the normalized
+# observations within CONT_OBS_TOL_OF_MAX: dividing by the std of a few
+# steps' values amplifies the sin/cos ulps (6.5e-6 of the largest seen)
+CONT_WRAPPER_TOL_OF_MAX = 1e-5
+CONT_OBS_TOL_OF_MAX = 1e-4
+CONT_BATCH = 256  # the off-policy updates' batch (the scripts' default)
+# PPO and RPO through main at their defaults (4 envs x 2,048 steps, 32 x 10
+# minibatches, the wrapper stack), 2 updates of 122, with a save
+CONT_PPO_ARGS = ["--total-timesteps", "16384", "--save-interval", "2"]
+# DDPG, TD3 and SAC at full width (256-256, batch 256, a ring of 131,072, 1
+# env, 512 steps an iteration), cut in length: 2,048 of 1,000,000 steps,
+# updates past 1,024 stored (of 25,000; SAC's 5,000): 1,024 critic steps,
+# the actor every 2nd (SAC: 2 passes), SAC's target sync every step.  (At
+# 5,120 steps the phase took 396 s on the card: SAC makes 871 device
+# operations a training step.)
+CONT_AC_ARGS = ["--total-timesteps", "2048", "--learning-starts", "1024", "--save-interval", "4"]
+CONT_AC_ITERS = 4
+CONT_AC_UPDATES = 1024
+# The next 128 steps, in iterations of 128 (the 17th): in memory (profiled)
+# and, for SAC, from the checkpoint
+CONT_NEXT_STEPS = 128
+CONT_RESUME_ARGS = ["--total-timesteps", "2176", "--learning-starts", "1024",
+                    "--steps-per-iteration", str(CONT_NEXT_STEPS)]
+
+
+def to_device(state, device):
+    """A (wrapped) env state, its tensors on ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    return type(state)(**{f.name: to_device(getattr(state, f.name), device)
+                          for f in dataclasses.fields(state)})
+
+
+def tensors_of(state, prefix=""):
+    """{path: tensor} of a (wrapped) env state."""
+    if isinstance(state, torch.Tensor):
+        return {prefix: state}
+    out = {}
+    for f in dataclasses.fields(state):
+        out.update(tensors_of(getattr(state, f.name), f"{prefix}.{f.name}" if prefix else f.name))
+    return out
+
+
+def tol_of_max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| at its largest over the largest |b| (at least 1)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+
+
+def pendulum_pair(stack: bool):
+    """(cpu env, card env, record): the card's resets take the CPU's draws,
+    which ``record`` tapes; with ``stack`` both under the scripts' wrappers."""
+    from mmtrl_tpu_torch.envs.classic import Pendulum
+    from mmtrl_tpu_torch.envs.wrappers import ClipAction, NormalizeObservation, NormalizeReward
+
+    tape = []
+    cpu = Pendulum(device="cpu")
+
+    def record(n, generator):
+        out = cpu.draw_reset(n, generator)
+        tape.append(out)
+        return out
+
+    cpu.sampler = record
+    card_env = Pendulum(device="cuda", sampler=lambda n, generator: tape.pop(0))
+    if stack:
+        def wrap(e):
+            return NormalizeReward(NormalizeObservation(ClipAction(e)))
+
+        return wrap(cpu), wrap(card_env), tape
+    return cpu, card_env, tape
+
+
+def inner_max_steps(env) -> int:
+    while hasattr(env, "env"):
+        env = env.env
+    return env.max_steps
+
+
+def continuous_env_checks(smi: str):
+    """(a) Pendulum card vs CPU: 64 envs for 40 steps under random torques
+    in [-3, 3], each step from the CPU's state, the card's auto-resets fed
+    the CPU's reset draws, 8 envs through the time limit; then the wrapper
+    stack the same way, every env's statistics and return compared; then
+    Pendulum, bare and wrapped, timed alone."""
+    g = torch.Generator().manual_seed(SEED)
+    for stack in (False, True):
+        cpu, card_env, tape = pendulum_pair(stack)
+        _, state = cpu.reset(CONT_ENV_BATCH, g)
+        tape.clear()
+        inner = state
+        while hasattr(inner, "inner"):
+            inner = inner.inner
+        inner.t[:8] = inner_max_steps(cpu) - 4  # 8 envs reach the time limit
+        worst, flags_equal, dones = {}, True, 0
+        for _ in range(CONT_ENV_STEPS):
+            action = torch.rand(CONT_ENV_BATCH, 1, generator=g) * 6 - 3
+            obs, nxt, r, d, info = cpu.step(state, action, g)
+            c_obs, c_nxt, c_r, c_d, c_info = card_env.step(to_device(state, "cuda"), action.cuda())
+            flags_equal &= torch.equal(d, c_d.cpu()) and torch.equal(
+                info["truncated"], c_info["truncated"].cpu()) and torch.equal(d, info["truncated"])
+            pairs = {"obs": (c_obs, obs), "final_obs": (c_info["final_obs"], info["final_obs"]),
+                     "reward": (c_r, r)}
+            if stack:
+                pairs["raw_reward"] = (c_info["raw_reward"], info["raw_reward"])
+            ours = tensors_of(c_nxt)
+            pairs.update({k: (ours[k], v) for k, v in tensors_of(nxt).items()})
+            for k, (a, b) in pairs.items():
+                if k == "t" or k.endswith(".t"):
+                    flags_equal &= torch.equal(a.cpu(), b)
+                    continue
+                err = (tol_of_max_err(a, b) if stack
+                       else (a.cpu().double() - b.double()).abs().max().item())
+                worst[k] = max(worst.get(k, 0.0), err)
+            dones += int(d.sum())
+            state = nxt
+        if stack:
+            tol = {k: CONT_OBS_TOL_OF_MAX if k == "obs" else CONT_WRAPPER_TOL_OF_MAX
+                   for k in worst}
+        else:
+            tol = {k: CONT_REWARD_ATOL if k == "reward" else CONT_STATE_ATOL for k in worst}
+        ok = flags_equal and dones == 8 and all(worst[k] <= tol[k] for k in worst)
+        emit("continuous_env", env="Pendulum-v1" + (" wrapped" if stack else ""),
+             envs=CONT_ENV_BATCH, steps=CONT_ENV_STEPS, max_err=worst,
+             tol=tol, err_is="of each tensor's largest (at least 1)" if stack else "absolute",
+             done_truncated_equal=flags_equal, dones=dones, card=smi, ok=ok)
+        check(ok, f"Pendulum card vs CPU (wrapped: {stack}): {worst}, flags {flags_equal}")
+
+    # the card env alone: one step of 1 env (the off-policy loops') and of 4
+    # (PPO's), timed; and the wrapped step of 4
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs.classic import Pendulum
+    from mmtrl_tpu_torch.scripts import ppo_continuous_action
+
+    for n, wrapped in ((1, False), (4, False), (4, True)):
+        env = Pendulum(device="cuda")
+        if wrapped:
+            env = ppo_continuous_action.make_env(cli(ppo_continuous_action.Args, []),
+                                                 torch.device("cuda"))
+        gc = torch.Generator(device="cuda").manual_seed(SEED)
+        _, s = env.reset(n, gc)
+        a = torch.zeros(n, 1, device="cuda")
+        for _ in range(20):
+            _, s, _, _, _ = env.step(s, a, gc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            _, s, _, _, _ = env.step(s, a, gc)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 200
+        _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+        emit("continuous_env", env="Pendulum-v1" + (" wrapped" if wrapped else ""),
+             timed_envs=n, ms_per_step=ms, env_steps_per_s=n * 1e3 / ms,
+             device_ops_per_step=ops, device_busy_ms=busy, card=smi)
+
+
+def continuous_update_checks(smi: str):
+    """(b) One update of each algorithm on the card and on the CPU, in
+    float64, from the same weights, data and draws: ``make_continuous_ppo``
+    with RPO (alpha 0.5) at the defaults' shapes on a CPU rollout, and one
+    DDPG, TD3 and SAC update at batch 256 on the step where the actor,
+    alpha and Polyak passes run."""
+    import copy
+
+    from mmtrl_tpu_torch.algos.offpolicy.ddpg import ContinuousDraws
+    from mmtrl_tpu_torch.algos.ppo.core import RunnerState, make_continuous_ppo
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.ops.fused_optim import init_adam_state
+    from mmtrl_tpu_torch.scripts import (
+        ddpg_continuous_action,
+        ppo_continuous_action,
+        sac_continuous_action,
+        td3_continuous_action,
+    )
+
+    g = torch.Generator().manual_seed(SEED)
+    args = cli(ppo_continuous_action.Args, ["--cuda", "False", "--rpo-alpha", "0.5"])
+    algo, cfg, _ = ppo_continuous_action.build(args)
+    rs = algo.init_runner(torch.Generator().manual_seed(SEED))
+    rs, data = algo.rollout(rs)  # float32, on the CPU
+    perms = [torch.randperm(cfg.batch_size, generator=g) for _ in range(cfg.update_epochs)]
+    noise = [torch.rand(cfg.minibatch_size, 1, generator=g, dtype=torch.float64) - 0.5
+             for _ in range(cfg.opt_steps_per_update)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = copy.deepcopy(rs.model).to(device, torch.float64)
+        run = RunnerState(model=model, opt_state=init_adam_state(list(model.parameters())),
+                          env_state=None, obs=rs.obs.to(device, torch.float64),
+                          done=rs.done.to(device), carry=(), stats=None, generator=None)
+        rollout = tuple(x.to(device, torch.float64) if x.is_floating_point() else x.to(device)
+                        for x in data)
+        ppo = make_continuous_ppo(None, model, cfg)
+        run, metrics = ppo.update_from_rollout(run, rollout, perms, rpo_noise=noise)
+        out[device] = (run.model, {k: float(v) for k, v in metrics.items()})
+    err, at = param_err([out["cuda"][0]], [out["cpu"][0]])
+    moved = param_err([out["cpu"][0]], [rs.model])[0]
+    ok = err <= PPO_PARAM_ATOL_FLOAT64 and moved > 0
+    emit("continuous_update", algo="make_continuous_ppo rpo_alpha 0.5",
+         opt_steps=cfg.opt_steps_per_update, minibatch=cfg.minibatch_size,
+         worst_param_abs_err=err, worst_param=at, atol=PPO_PARAM_ATOL_FLOAT64,
+         largest_param_move=moved, metrics_card_cpu={k: (out["cuda"][1][k], out["cpu"][1][k])
+                                                     for k in out["cpu"][1]}, card=smi, ok=ok)
+    check(ok, f"continuous PPO update card vs CPU in float64: {err} at {at}")
+
+    theta = torch.rand(CONT_BATCH, generator=g, dtype=torch.float64) * 2 * math.pi - math.pi
+    speed = torch.rand(CONT_BATCH, generator=g, dtype=torch.float64) * 16 - 8
+
+    def pendulum_obs(th, w):
+        return torch.stack([th.cos(), th.sin(), w], dim=-1)
+
+    batch = dict(obs=pendulum_obs(theta, speed),
+                 action=torch.rand(CONT_BATCH, 1, generator=g, dtype=torch.float64) * 4 - 2,
+                 reward=-torch.rand(CONT_BATCH, generator=g, dtype=torch.float64) * 16,
+                 next_obs=pendulum_obs(theta + 0.05 * speed, speed),
+                 done=torch.zeros(CONT_BATCH, dtype=torch.float64))
+    for name, module in (("ddpg", ddpg_continuous_action), ("td3", td3_continuous_action),
+                         ("sac", sac_continuous_action)):
+        built = {}
+        for device in ("cpu", "cuda"):
+            algo, cfg, _, _ = module.build(cli(module.Args, ["--cuda", str(device == "cuda")]))
+            ts = algo.init_runner(torch.Generator(device=device).manual_seed(SEED)).train_state
+            built[device] = (algo, cfg, ts, [ts.actor] + list(ts.critics))
+        for device, (_, _, ts, nets) in built.items():
+            for net, ref in zip(nets, built["cpu"][3]):  # the CPU's weights on both
+                for part in ("model", "target"):
+                    if getattr(net, part) is not None:
+                        getattr(net, part).load_state_dict(getattr(ref, part).state_dict())
+                        getattr(net, part).double()
+                net.opt_state = init_adam_state(net.params)
+            if ts.log_alpha is not None:
+                ts.log_alpha = ts.log_alpha.double()
+                ts.alpha_opt_state = init_adam_state([ts.log_alpha])
+        actor_before = copy.deepcopy(built["cpu"][2].actor.model)
+        target_noise = torch.randn(CONT_BATCH, 1, generator=g, dtype=torch.float64)
+        actor_noise = [torch.randn(CONT_BATCH, 1, generator=g, dtype=torch.float64)
+                       for _ in range(2)]
+        results = {}
+        for device, (algo, cfg, ts, nets) in built.items():
+            draws = ContinuousDraws(None, None, None, target_noise.to(device),
+                                    [x.to(device) for x in actor_noise])
+            ts, metrics = algo.update(ts, {k: v.to(device) for k, v in batch.items()},
+                                      cfg.policy_frequency, draws)
+            modules = [m for net in nets for m in (net.model, net.target) if m is not None]
+            results[device] = (modules, ts.log_alpha, {k: float(v) for k, v in metrics.items()})
+        err, at = param_err(results["cuda"][0], results["cpu"][0])
+        if results["cpu"][1] is not None:
+            alpha_err = abs(results["cuda"][1].item() - results["cpu"][1].item())
+            if alpha_err > err:
+                err, at = alpha_err, "log_alpha"
+        moved = param_err([built["cpu"][2].actor.model], [actor_before])[0]
+        ok = err <= PER_TD_ATOL_FLOAT64 and moved > 0
+        emit("continuous_update", algo=name, batch_size=CONT_BATCH, worst_abs_err=err,
+             worst_param=at, atol=PER_TD_ATOL_FLOAT64, actor_largest_move=moved,
+             metrics_card_cpu={k: (results["cuda"][2][k], results["cpu"][2][k])
+                               for k in results["cpu"][2]}, card=smi, ok=ok)
+        check(ok, f"{name} update card vs CPU in float64: {err} at {at} (moved {moved})")
+
+
+def continuous_ppo_runs(smi: str, tmp: str):
+    """(c) ``ppo_continuous_action`` and ``rpo_continuous_action`` through
+    ``main`` at their defaults, two updates each with a save; one more PPO
+    update in memory, profiled."""
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import ppo_continuous_action, rpo_continuous_action
+
+    save_dir = os.path.join(tmp, "continuous_ck")
+    for name, module in (("ppo", ppo_continuous_action), ("rpo", rpo_continuous_action)):
+        torch.cuda.reset_peak_memory_stats()
+        out = module.main(cli(module.Args, CONT_PPO_ARGS + ["--save-dir", save_dir]))
+        for row in out["history"]:
+            emit("continuous_ppo", run=f"scripts.{name}_continuous_action", **row, card=smi)
+        emit("continuous_ppo", run=f"scripts.{name}_continuous_action", sps_of_run=out["sps"],
+             updates=len(out["history"]), card=smi)
+        check(len(out["history"]) == 2 and all(
+            math.isfinite(v) for row in out["history"] for k, v in row.items()
+            if k.startswith("losses/")), f"{name}: {out['history']}")
+        check(os.path.exists(os.path.join(save_dir, out["run_name"])), f"{name}: no checkpoint")
+        if name == "ppo":
+            algo, cfg, _ = ppo_continuous_action.build(cli(ppo_continuous_action.Args, []))
+            _, wall, ops, busy, top = device_profile(lambda: algo.train_iteration(out["runner"]))
+            emit("continuous_ppo", run="ppo_continuous_action profiled update 3", wall_s=wall,
+                 sps=cfg.batch_size / wall, device_ops=ops, device_busy_ms=busy,
+                 idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+
+def continuous_ac_runs(smi: str, tmp: str):
+    """(d) ``ddpg``, ``td3`` and ``sac_continuous_action`` through ``main``
+    at full width, cut to 2,048 steps with updates past 1,024, each ending
+    with the greedy evaluation and a save; the next 128 steps of each in
+    memory, profiled; and SAC's next 128 from the checkpoint through
+    ``--load-from``, equal bit for bit to those in memory."""
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import (
+        ddpg_continuous_action,
+        sac_continuous_action,
+        td3_continuous_action,
+    )
+
+    save_dir = os.path.join(tmp, "continuous_ck")
+    for name, module in (("ddpg", ddpg_continuous_action), ("td3", td3_continuous_action),
+                         ("sac", sac_continuous_action)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = module.main(cli(module.Args, CONT_AC_ARGS + ["--save-dir", save_dir]))
+        wall = time.perf_counter() - t0
+        hist = out["history"]
+        train_s = sum(r["wall_s"] for r in hist)
+        loss_key = "losses/qf1_loss" if name == "ddpg" else "losses/qf_loss"
+        warm = sum(r["wall_s"] for r in hist[:2])
+        emit("continuous_ac", run=f"scripts.{name}_continuous_action", iterations=len(hist),
+             global_step=out["global_step"], wall_s=wall, train_s=train_s, eval_s=out["eval_s"],
+             env_steps_per_s=out["global_step"] / train_s,
+             training_env_steps_per_s=(out["global_step"] - 1024) / (train_s - warm),
+             wall_per_iteration_s=[r["wall_s"] for r in hist],
+             last_step_losses=[r[loss_key] for r in hist],
+             actor_losses=[r["losses/actor_loss"] for r in hist],
+             q_values=[r["losses/qf1_values"] for r in hist],
+             alpha=[r.get("losses/alpha") for r in hist] if name == "sac" else None,
+             episodic_return=out["episodic_return"], eval_return=out["eval_episodic_return"],
+             eval_episodes=out["eval_episodes"],
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        ts = out["runner"].train_state
+        actor_steps = CONT_AC_UPDATES if name == "sac" else CONT_AC_UPDATES // 2
+        check(len(hist) == CONT_AC_ITERS and out["global_step"] == 512 * CONT_AC_ITERS,
+              f"{name}: {len(hist)} iterations")
+        check(all(int(c.step) == CONT_AC_UPDATES for c in ts.critics)
+              and int(ts.actor.step) == actor_steps,
+              f"{name}: critic steps {[int(c.step) for c in ts.critics]}, "
+              f"actor {int(ts.actor.step)}")
+        check(all(math.isfinite(r[loss_key]) and math.isfinite(r["losses/actor_loss"])
+                  for r in hist) and hist[-1][loss_key] != 0.0
+              and hist[-1]["losses/actor_loss"] != 0.0, f"{name}: losses {hist}")
+        check(out["eval_episodes"] == 16 * 5, f"{name}: {out['eval_episodes']} episodes")
+
+        # the next 128 steps in memory, profiled
+        algo, _, _, _ = module.build(cli(module.Args, CONT_RESUME_ARGS))
+        (runner, _), wall, ops, busy, top = device_profile(
+            lambda: algo.train_iteration(out["runner"]))
+        n = CONT_NEXT_STEPS
+        emit("continuous_ac", run=f"{name} profiled, {n} training steps", env_steps=n,
+             wall_s=wall, env_steps_per_s=n / wall, device_ops=ops,
+             device_ops_per_env_step=ops / n, device_busy_ms=busy,
+             idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+        if name == "sac":
+            resumed = module.main(cli(module.Args, CONT_RESUME_ARGS + [
+                "--save-dir", save_dir, "--load-from", os.path.join(save_dir, out["run_name"])]))
+            mine, theirs = runner.payload(), resumed["runner"].payload()
+            differing = [k for k in mine if not _same_payload(mine[k], theirs[k])]
+            emit("continuous_ac", run="sac resume", initial_iteration=resumed[
+                "initial_iteration"], differing_fields=differing, card=smi)
+            check(resumed["history"][0]["global_step"] == 2048 + CONT_NEXT_STEPS
+                  and len(resumed["history"]) == 1 and not differing,
+                  f"the resumed SAC run differs from its steps in memory in {differing}")
+
+
+def continuous_checks(smi: str, tmp: str):
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    t0, seconds = time.perf_counter(), {}
+    for step in (continuous_env_checks, continuous_update_checks):
+        t = time.perf_counter()
+        step(smi)
+        seconds[step.__name__] = time.perf_counter() - t
+    for step in (continuous_ppo_runs, continuous_ac_runs):
+        t = time.perf_counter()
+        step(smi, tmp)
+        seconds[step.__name__] = time.perf_counter() - t
+    emit("continuous", seconds=time.perf_counter() - t0, by_step=seconds, card=smi)
+
+
+def phase_continuous(smi: str, tmp: str):
+    """The continuous half of classic control: (a) Pendulum and the wrapper
+    stack card vs CPU, Pendulum timed alone; (b) one continuous-PPO update
+    with RPO and one DDPG, TD3 and SAC update card vs CPU in float64; (c)
+    ppo and rpo_continuous_action through main, a profiled update; (d)
+    ddpg, td3 and sac_continuous_action through main, the next 128 steps
+    of each profiled, SAC's resumed bit for bit.  No kernel of the port lies on
+    this path."""
+    restoring_flags(continuous_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -2419,6 +2833,11 @@ def main() -> int:
         classic_launches = read_counts()
         check(not any(classic_launches.values()),
               f"the classic phase launched attention kernels: {classic_launches}")
+        reset_counts()
+        phase_continuous(smi, tmp)
+        continuous_launches = read_counts()
+        check(not any(continuous_launches.values()),
+              f"the continuous phase launched attention kernels: {continuous_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -2438,8 +2857,9 @@ def main() -> int:
             # dt_rom from the Q checkpoints (the value-learning slice)
             "dqn_dt_launches": q_launches["dqn"][name],
             "c51_dt_launches": q_launches["c51"][name],
-            # the classic-control slice: no attention on its path
+            # the classic-control slices: no attention on their paths
             "classic_launches": classic_launches[name],
+            "continuous_launches": continuous_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

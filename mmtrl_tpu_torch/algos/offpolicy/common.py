@@ -23,7 +23,7 @@ class OffPolicyRunner:
     global step is a host integer (JAX keeps a device scalar): the cadence,
     epsilon and PER's beta are read from it with no copy from the device."""
 
-    train_state: Any  # the algorithm's train state (DQNTrainState)
+    train_state: Any  # the algorithm's train state (DQNTrainState, ActorCriticState)
     buffer: Any  # ReplayBuffer or PrioritizedReplayBuffer
     env_state: Any
     obs: torch.Tensor  # (num_envs, ...) current observation

@@ -80,8 +80,12 @@ class DQNConfig:
 
 @dataclasses.dataclass
 class DQNTrainState:
+    """A network, its target (None for SAC's actor, which has none) and
+    its Adam state: DQN's and C51's Q network, and each actor and critic
+    of DDPG, TD3 and SAC."""
+
     model: nn.Module
-    target: nn.Module
+    target: Optional[nn.Module]
     opt_state: ScaleByAdamState
     learning_rate: float
     adam_eps: float = 1e-8
@@ -97,7 +101,7 @@ class DQNTrainState:
     def payload(self) -> Dict[str, Any]:
         """Parameters, target and Adam state as plain CPU tensors."""
         def cpu(m):
-            return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+            return None if m is None else {k: v.detach().cpu() for k, v in m.state_dict().items()}
 
         opt = self.opt_state
         return {"model": cpu(self.model), "target": cpu(self.target),
@@ -106,7 +110,8 @@ class DQNTrainState:
 
     def load_payload(self, payload: Dict[str, Any]) -> "DQNTrainState":
         self.model.load_state_dict(payload["model"])
-        self.target.load_state_dict(payload["target"])
+        if self.target is not None:
+            self.target.load_state_dict(payload["target"])
         device = self.opt_state.count.device
         opt = payload["opt_state"]
         self.opt_state = ScaleByAdamState(opt["count"].to(device),
@@ -115,10 +120,11 @@ class DQNTrainState:
         return self
 
 
-def create_dqn_state(model: nn.Module, learning_rate: float,
-                     adam_eps: float = 1e-8) -> DQNTrainState:
-    """``model`` as the online network, its copy as the target."""
-    target = copy.deepcopy(model).requires_grad_(False)
+def create_dqn_state(model: nn.Module, learning_rate: float, adam_eps: float = 1e-8,
+                     with_target: bool = True) -> DQNTrainState:
+    """``model`` as the online network, its copy as the target (none
+    without ``with_target``)."""
+    target = copy.deepcopy(model).requires_grad_(False) if with_target else None
     return DQNTrainState(model=model, target=target,
                          opt_state=init_adam_state(list(model.parameters())),
                          learning_rate=learning_rate, adam_eps=adam_eps)

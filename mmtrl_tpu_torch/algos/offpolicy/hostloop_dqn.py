@@ -27,7 +27,7 @@ actions`` and ``update_fn(ts, batch) -> (ts, loss, q_mean)`` default to
 DQN's argmax-Q and ``dqn_td_update``; ``scripts/c51_rom.py`` passes C51's.
 A resume (``--load-from``) restores the parameters, the target and the
 Adam state; the replay ring restarts cold at ``global_step`` 0.  The JAX
-loop's run journal (``utils/resume.journal_run``, ROADMAP A.4) is not
+loop's run journal (``utils/resume.journal_run``, ROADMAP A.9) is not
 ported.
 """
 

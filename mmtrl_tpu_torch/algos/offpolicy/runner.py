@@ -1,4 +1,4 @@
-"""Host side of the fused off-policy trainers (DQN, C51); port of
+"""Host side of the fused off-policy trainers (DQN, C51, DDPG, TD3, SAC); port of
 ``mmtrl_tpu/algos/offpolicy/runner.py``.
 
 One ``train_iteration`` call per iteration; TensorBoard logging with the

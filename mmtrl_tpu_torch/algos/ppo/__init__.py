@@ -1,6 +1,13 @@
-"""Proximal policy optimization: the feedforward and recurrent (LSTM)
-variants; PPO + RND in ``rnd``, PPG in ``ppg``."""
+"""Proximal policy optimization: the feedforward (discrete and
+continuous, with RPO) and recurrent (LSTM) variants; PPO + RND in ``rnd``,
+PPG in ``ppg``."""
 
-from mmtrl_tpu_torch.algos.ppo.core import PPOConfig, RunnerState, make_ppo, make_recurrent_ppo
+from mmtrl_tpu_torch.algos.ppo.core import (
+    PPOConfig,
+    RunnerState,
+    make_continuous_ppo,
+    make_ppo,
+    make_recurrent_ppo,
+)
 
-__all__ = ["PPOConfig", "RunnerState", "make_ppo", "make_recurrent_ppo"]
+__all__ = ["PPOConfig", "RunnerState", "make_continuous_ppo", "make_ppo", "make_recurrent_ppo"]

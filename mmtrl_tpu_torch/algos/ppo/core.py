@@ -23,14 +23,19 @@ iteration.  The optimizer is ``ops/fused_optim.py::fused_clip_adamw`` with
 ``weight_decay=0`` and ``eps=1e-5``: term for term JAX's
 ``optax.chain(clip_by_global_norm, adam(eps=1e-5))``, under the linear
 anneal ``lr * (1 - (count // opt_steps_per_update) / num_updates)`` read at
-the count before the increment.  The continuous PPO variant is not ported
-yet.
+the count before the increment.
+
+``make_continuous_ppo`` is the feedforward loop with a diagonal-Gaussian
+policy (``PolicyHead`` ``gaussian_head``): the rollout stores the
+unclipped sample (``ClipAction`` clips only what the env sees), and with
+``rpo_alpha`` each minibatch perturbs the mean by a fresh uniform draw
+(RPO, cleanrl/rpo_continuous_action.py:130-136).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +46,9 @@ from mmtrl_tpu_torch.models.distributions import (
     categorical_entropy,
     categorical_log_prob,
     categorical_sample,
+    normal_entropy,
+    normal_log_prob,
+    normal_sample,
 )
 from mmtrl_tpu_torch.models.lstm import Carry
 from mmtrl_tpu_torch.ops.fused_optim import (
@@ -56,8 +64,7 @@ Rollout = Tuple[torch.Tensor, ...]
 
 @dataclasses.dataclass
 class PPOConfig:
-    """Field for field the JAX ``PPOConfig``, less ``rpo_alpha`` (RPO's mean
-    noise, read only by the continuous variant, which is not ported)."""
+    """Field for field the JAX ``PPOConfig``."""
 
     total_timesteps: int = 500_000
     learning_rate: float = 2.5e-4
@@ -75,6 +82,7 @@ class PPOConfig:
     vf_coef: float = 0.5
     max_grad_norm: float = 0.5
     clip_rewards: bool = False  # sign-clip like SB3 ClipRewardEnv
+    rpo_alpha: float = 0.0  # >0 enables RPO mean perturbation (continuous PPO)
     target_kl: Optional[float] = None  # early-stop epochs past this KL
 
     @property
@@ -314,12 +322,69 @@ def ppo_step(cfg: PPOConfig, schedule, params: Sequence[torch.Tensor], opt_state
 
 
 # =============================================================================
-# Feedforward discrete PPO
+# Feedforward PPO: discrete (categorical) and continuous (diagonal Gaussian)
 # =============================================================================
+class PolicyHead(NamedTuple):
+    """How the feedforward loop reads its agent: ``act(model, obs,
+    generator) -> (action, logprob, value)`` in the rollout, ``terms(model,
+    obs, action, generator) -> (logprob, entropy, value)`` on a minibatch,
+    ``value(model, obs)`` for the bootstrap."""
+
+    act: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    terms: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    value: Callable[[nn.Module, torch.Tensor], torch.Tensor]
+
+
+def _categorical_act(model, obs, generator):
+    logits, value = model(obs)[:2]
+    action = categorical_sample(generator, logits)
+    return action, categorical_log_prob(logits, action), value
+
+
+def _categorical_terms(model, obs, action, generator):
+    logits, value = model(obs)[:2]
+    return categorical_log_prob(logits, action), categorical_entropy(logits), value
+
+
+# ``model(obs) -> (logits, value, ...)``
+CATEGORICAL = PolicyHead(_categorical_act, _categorical_terms, lambda model, obs: model(obs)[1])
+
+
+def gaussian_head(rpo_alpha: float = 0.0,
+                  rpo_noise: Optional[Sequence[torch.Tensor]] = None) -> PolicyHead:
+    """``model(obs) -> (mean, log_std, value)``.  With ``rpo_alpha`` each
+    minibatch adds ``U(-rpo_alpha, rpo_alpha)`` noise of the mean's shape
+    to the mean before the stored actions' log-probabilities: drawn from
+    the generator as ``jax.random.uniform`` with ``minval`` and ``maxval``
+    draws it, or taken in turn from ``rpo_noise`` (one tensor per
+    minibatch, in order) when a test replays another implementation's."""
+    replay = None if rpo_noise is None else list(rpo_noise)
+
+    def act(model, obs, generator):
+        mean, log_std, value = model(obs)
+        action = normal_sample(generator, mean, log_std)
+        return action, normal_log_prob(mean, log_std, action), value
+
+    def terms(model, obs, action, generator):
+        mean, log_std, value = model(obs)
+        if rpo_alpha > 0:
+            if replay is None:
+                u = torch.rand(mean.shape, generator=generator, device=mean.device,
+                               dtype=mean.dtype)
+                noise = torch.clamp(u * (2 * rpo_alpha) - rpo_alpha, min=-rpo_alpha)
+            else:
+                noise = replay.pop(0).to(mean.device, mean.dtype)
+            mean = mean + noise
+        return normal_log_prob(mean, log_std, action), normal_entropy(log_std), value
+
+    return PolicyHead(act, terms, lambda model, obs: model(obs)[2])
+
+
 @dataclasses.dataclass
 class FeedforwardPPO:
-    """The functions of ``make_ppo``, by name; ``rollout`` is the first
-    half of ``train_iteration``, ``update_from_rollout`` the second."""
+    """The functions of ``make_ppo`` and ``make_continuous_ppo``, by name;
+    ``rollout`` is the first half of ``train_iteration``,
+    ``update_from_rollout`` the second."""
 
     init_runner: Callable[[torch.Generator], RunnerState]
     rollout: Callable[[RunnerState], Tuple[RunnerState, Rollout]]
@@ -342,22 +407,23 @@ def init_feedforward_runner(env: Environment, model: nn.Module, num_envs: int,
     )
 
 
-def feedforward_rollout(env: Environment, cfg: PPOConfig, rs: RunnerState
-                        ) -> Tuple[RunnerState, Rollout]:
-    """``num_steps`` steps of ``rs.model(obs) -> (logits, value, ...)``."""
+def feedforward_rollout(env: Environment, cfg: PPOConfig, rs: RunnerState,
+                        head: PolicyHead = CATEGORICAL) -> Tuple[RunnerState, Rollout]:
+    """``num_steps`` steps of ``head.act``; the actions are stored as the
+    policy drew them."""
     T, N = cfg.num_steps, cfg.num_envs
     device = rs.obs.device
     obs = torch.empty((T,) + tuple(rs.obs.shape), dtype=rs.obs.dtype, device=device)
-    actions = torch.empty((T, N), dtype=torch.long, device=device)
     logprobs, rewards, values = (torch.empty((T, N), device=device) for _ in range(3))
     dones = torch.empty((T, N), dtype=torch.bool, device=device)
+    actions = None
     env_state, o, done, stats = rs.env_state, rs.obs, rs.done, rs.stats
     for t in range(T):
         with torch.no_grad():
-            logits, value = rs.model(o)[:2]
-        action = categorical_sample(rs.generator, logits)
-        obs[t], actions[t], dones[t], values[t] = o, action, done, value
-        logprobs[t] = categorical_log_prob(logits, action)
+            action, logprob, value = head.act(rs.model, o, rs.generator)
+        if actions is None:
+            actions = torch.empty((T,) + tuple(action.shape), dtype=action.dtype, device=device)
+        obs[t], actions[t], dones[t], values[t], logprobs[t] = o, action, done, value, logprob
         o, env_state, reward, done, info = env.step(env_state, action, rs.generator)
         # Episode statistics take the RAW reward when a reward-transforming
         # wrapper reports one (src/train.py:52-57); the loss the clipped one.
@@ -369,7 +435,7 @@ def feedforward_rollout(env: Environment, cfg: PPOConfig, rs: RunnerState
 
 def feedforward_update(cfg: PPOConfig, rs: RunnerState, rollout: Rollout,
                        perms: Optional[Sequence[torch.Tensor]] = None,
-                       allow_unused: bool = False
+                       allow_unused: bool = False, head: PolicyHead = CATEGORICAL
                        ) -> Tuple[RunnerState, Metrics, torch.Tensor]:
     """GAE and ``cfg.update_epochs`` epochs over permutations of all
     ``batch_size`` rows; returns the runner, the last minibatch's metrics
@@ -378,7 +444,7 @@ def feedforward_update(cfg: PPOConfig, rs: RunnerState, rollout: Rollout,
     obs, actions, logprobs, rewards, dones, values = rollout
     model = rs.model
     with torch.no_grad():
-        next_value = model(rs.obs)[1]
+        next_value = head.value(model, rs.obs)
     advantages, returns = compute_gae(rewards, values, dones, next_value, rs.done,
                                       cfg.gamma, cfg.gae_lambda)
     batch = tuple(x.reshape((cfg.batch_size,) + x.shape[2:])
@@ -388,9 +454,8 @@ def feedforward_update(cfg: PPOConfig, rs: RunnerState, rollout: Rollout,
 
     def minibatch_step(opt_state, idx):
         b_obs, b_act, b_logp, b_adv, b_ret, b_val = (x[idx] for x in batch)
-        logits, newvalue = model(b_obs)[:2]
-        loss, metrics = _ppo_loss(cfg, categorical_log_prob(logits, b_act),
-                                  categorical_entropy(logits), newvalue, b_logp, b_adv, b_ret,
+        newlogprob, entropy, newvalue = head.terms(model, b_obs, b_act, rs.generator)
+        loss, metrics = _ppo_loss(cfg, newlogprob, entropy, newvalue, b_logp, b_adv, b_ret,
                                   b_val)
         return ppo_step(cfg, schedule, params, opt_state, loss, allow_unused), metrics
 
@@ -402,32 +467,46 @@ def feedforward_update(cfg: PPOConfig, rs: RunnerState, rollout: Rollout,
     return dataclasses.replace(rs, opt_state=opt_state), metrics, returns
 
 
-def make_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> FeedforwardPPO:
-    """``model(obs (N, ...)) -> (logits, value)``; minibatches are
-    permutations of the flattened (T * N) batch.  ``init_runner`` takes
-    ``model``; the other functions use the runner's own model."""
-
+def _feedforward_ppo(env: Environment, model: nn.Module, cfg: PPOConfig,
+                     head_of: Callable[..., PolicyHead]) -> FeedforwardPPO:
     def update_from_rollout(rs: RunnerState, rollout: Rollout,
-                            perms: Optional[Sequence[torch.Tensor]] = None):
+                            perms: Optional[Sequence[torch.Tensor]] = None, **draws):
         """PPO update from a completed rollout; ``rs`` carries the
         post-rollout obs and done for the value bootstrap.  ``perms`` (one
         permutation of ``range(batch_size)`` per epoch) replaces the
         generator's draws, so a test can replay another implementation's."""
-        rs, metrics, returns = feedforward_update(cfg, rs, rollout, perms)
+        rs, metrics, returns = feedforward_update(cfg, rs, rollout, perms, head=head_of(**draws))
         metrics["losses/explained_variance"] = _explained_variance(rollout[5].reshape(-1),
                                                                    returns.reshape(-1))
         return rs, metrics
 
     def train_iteration(rs: RunnerState):
-        rs, data = feedforward_rollout(env, cfg, rs)
+        rs, data = feedforward_rollout(env, cfg, rs, head_of())
         return update_from_rollout(rs, data)
 
     return FeedforwardPPO(
         init_runner=lambda generator: init_feedforward_runner(env, model, cfg.num_envs, generator),
-        rollout=lambda rs: feedforward_rollout(env, cfg, rs),
+        rollout=lambda rs: feedforward_rollout(env, cfg, rs, head_of()),
         train_iteration=train_iteration,
         update_from_rollout=update_from_rollout,
     )
+
+
+def make_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> FeedforwardPPO:
+    """``model(obs (N, ...)) -> (logits, value)``; minibatches are
+    permutations of the flattened (T * N) batch.  ``init_runner`` takes
+    ``model``; the other functions use the runner's own model."""
+    return _feedforward_ppo(env, model, cfg, lambda: CATEGORICAL)
+
+
+def make_continuous_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> FeedforwardPPO:
+    """``model(obs) -> (mean, log_std, value)``: ``make_ppo``'s loop with a
+    diagonal-Gaussian policy, RPO's mean noise with ``cfg.rpo_alpha``.
+    ``update_from_rollout(rs, rollout, perms, rpo_noise=...)`` takes the
+    minibatches' RPO draws in order (epoch by epoch) in place of the
+    generator's."""
+    return _feedforward_ppo(env, model, cfg,
+                            lambda rpo_noise=None: gaussian_head(cfg.rpo_alpha, rpo_noise))
 
 
 # =============================================================================

@@ -18,7 +18,7 @@ resumes at the update after the saved one, with the pool freshly reset, as
 the JAX loop does.  The step's reward is the env's ``_reward``, already
 host numpy (the JAX loop mirrors its jnp ``_reward`` in
 ``_shaped_reward_np``).  The JAX loop's run journal
-(``utils/resume.journal_run``, ROADMAP A.4) is not ported.
+(``utils/resume.journal_run``, ROADMAP A.9) is not ported.
 """
 
 from __future__ import annotations

@@ -26,6 +26,10 @@ so a JAX train state carries over whole.  The Q networks (``QNetwork``,
 ``DistributionalQNetwork``: ``network`` and ``q``) take the same walk, and
 ``dqn_payload_from_flax`` maps a whole ``DQNTrainState`` (params, target
 params, Adam state) onto the payload ``DQNTrainState.load_payload`` reads.
+``ContinuousActorCritic``'s state-independent ``log_std`` copies over as a
+leaf; ``actor_critic_payload_from_flax`` maps DDPG's, TD3's and SAC's
+whole train states (actor, critics, targets, each Adam state, and SAC's
+``log_alpha`` with its Adam state) onto ``ActorCriticState``'s payload.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def _leaf(name: str, value: np.ndarray):
         raise ValueError(f"kernel of rank {value.ndim}")
     if name in ("embedding", "scale"):
         return "weight", value
-    if name == "bias" or name.startswith("experts_"):
+    if name in ("bias", "log_std") or name.startswith("experts_"):
         return name, value
     raise ValueError(f"unknown flax leaf {name!r}")
 
@@ -95,12 +99,8 @@ def adam_state_from_flax(count: Any, mu: Mapping[str, Any], nu: Mapping[str, Any
 agent_params_from_flax = dt_params_from_flax
 
 
-def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdamState:
-    """``ScaleByAdamState`` of the PPO optimizer's optax state,
-    ``chain(clip_by_global_norm, adam)``: ``(EmptyState, (ScaleByAdamState,
-    ScaleByScheduleState or EmptyState))``, or of a plain ``adam``'s
-    ``(ScaleByAdamState, EmptyState)``.  The schedule's count equals the
-    Adam count, which the port's schedule reads."""
+def _adam_of(opt_state: Any):
+    """The one optax ``ScaleByAdamState`` inside an optimizer's state."""
     found = []
 
     def walk(node):
@@ -113,14 +113,47 @@ def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdam
     walk(opt_state)
     if len(found) != 1:
         raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(found)}")
-    return adam_state_from_flax(found[0].count, found[0].mu, found[0].nu, names)
+    return found[0]
+
+
+def ppo_opt_state_from_flax(opt_state: Any, names: Sequence[str]) -> ScaleByAdamState:
+    """``ScaleByAdamState`` of the PPO optimizer's optax state,
+    ``chain(clip_by_global_norm, adam)``: ``(EmptyState, (ScaleByAdamState,
+    ScaleByScheduleState or EmptyState))``, or of a plain ``adam``'s
+    ``(ScaleByAdamState, EmptyState)``.  The schedule's count equals the
+    Adam count, which the port's schedule reads."""
+    adam = _adam_of(opt_state)
+    return adam_state_from_flax(adam.count, adam.mu, adam.nu, names)
 
 
 def dqn_payload_from_flax(ts: Any, names: Sequence[str]) -> Dict[str, Any]:
-    """The port's ``DQNTrainState`` payload of a JAX ``DQNTrainState`` of
-    numpy arrays (``jax.device_get``), the Adam moments in the order of
-    ``names``, the Q network's ``named_parameters()``."""
+    """The port's ``DQNTrainState`` payload of a JAX train state of numpy
+    arrays (``jax.device_get``): ``DQNTrainState``, DDPG's ``ACTrainState``
+    or a plain flax ``TrainState`` (no target: SAC's actor), the Adam
+    moments in the order of ``names``, the network's
+    ``named_parameters()``."""
     opt = ppo_opt_state_from_flax(ts.opt_state, names)
+    target = getattr(ts, "target_params", None)
     return {"model": dt_params_from_flax(ts.params),
-            "target": dt_params_from_flax(ts.target_params),
+            "target": None if target is None else dt_params_from_flax(target),
             "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu}}
+
+
+def actor_critic_payload_from_flax(state: Any, actor_names: Sequence[str],
+                                   critic_names: Sequence[str]) -> Dict[str, Any]:
+    """The payload ``ActorCriticState.load_payload`` reads of a JAX
+    ``DDPGState`` (``actor``, ``critic``), ``TD3State`` (``actor``, ``qf1``,
+    ``qf2``) or ``SACState`` (those and ``log_alpha`` with its Adam state),
+    of numpy arrays: each network's params, target and Adam state."""
+    critics = [state.critic] if hasattr(state, "critic") else [state.qf1, state.qf2]
+    payload = {"actor": dqn_payload_from_flax(state.actor, actor_names),
+               "critics": [dqn_payload_from_flax(c, critic_names) for c in critics],
+               "log_alpha": None, "alpha_opt_state": None}
+    if hasattr(state, "log_alpha"):
+        adam = _adam_of(state.alpha_opt_state)
+        payload["log_alpha"] = torch.tensor(np.asarray(state.log_alpha, np.float32))
+        payload["alpha_opt_state"] = {
+            "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+            "mu": [torch.tensor(np.asarray(adam.mu, np.float32))],
+            "nu": [torch.tensor(np.asarray(adam.nu, np.float32))]}
+    return payload

@@ -1,7 +1,7 @@
 """Environment registry: ``make(env_id)`` like the reference's make_env
 thunks; port of ``mmtrl_tpu/envs/registry.py``.  Ported so far:
-Minecraft2d, the discrete classic-control envs (``CartPole-v1``,
-``Acrobot-v1``, ``MountainCar-v0``), the Skeleton+ device simulator
+Minecraft2d, the classic-control envs (``CartPole-v1``, ``Acrobot-v1``,
+``MountainCar-v0``, ``Pendulum-v1``), the Skeleton+ device simulator
 (``skeleton_plus``) and the native 2600 cartridges (``rally_native``,
 ``brick_native``, ``skeleton_plus_native``, the last needing SkelPlus.bin,
 which is not in the repository).  ``make`` passes its keyword arguments to
@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from mmtrl_tpu_torch.envs.base import Environment
-from mmtrl_tpu_torch.envs.classic import Acrobot, CartPole, MountainCar
+from mmtrl_tpu_torch.envs.classic import Acrobot, CartPole, MountainCar, Pendulum
 from mmtrl_tpu_torch.envs.homebrew_native import NativeBrick, NativeHomebrew
 from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
 from mmtrl_tpu_torch.envs.skeleton_native import NativeSkeletonPlus
@@ -34,6 +34,7 @@ def register(*names: str):
 register("CartPole-v1", "CartPole")(CartPole)
 register("Acrobot-v1", "Acrobot")(Acrobot)
 register("MountainCar-v0", "MountainCar")(MountainCar)
+register("Pendulum-v1", "Pendulum")(Pendulum)
 register("minecraft", "Minecraft2d")(Minecraft2d)
 register("skeleton_plus", "SkeletonPlus")(SkeletonPlusSim)
 register("skeleton_plus_native")(NativeSkeletonPlus)
@@ -41,14 +42,8 @@ register("rally_native")(NativeHomebrew)
 register("brick_native")(NativeBrick)
 
 
-# Registered by the JAX package, not ported yet: the ROADMAP item for each.
-UNPORTED = {"pendulum-v1": "A.6", "pendulum": "A.6"}
-
-
 def make(env_id: str, **kwargs) -> Environment:
     key = env_id.lower()
-    if key in UNPORTED:
-        raise NotImplementedError(f"env {env_id!r} is not ported yet (ROADMAP {UNPORTED[key]})")
     if key not in registry:
         raise KeyError(f"unknown env {env_id!r}; available: {sorted(registry)}")
     return registry[key](**kwargs)

@@ -1,6 +1,8 @@
-"""Actor-critic agents and Q networks; port of ``MultimodalRecurrentAgent``,
-``RecurrentAgent``, ``CNNAgent``, ``MLPActorCritic``, ``QNetwork`` and
-``DistributionalQNetwork`` of ``mmtrl_tpu/models/agents.py``.
+"""Actor-critic agents, Q networks and the continuous-control actors and
+critics; port of ``MultimodalRecurrentAgent``, ``RecurrentAgent``,
+``CNNAgent``, ``MLPActorCritic``, ``ContinuousActorCritic``, ``QNetwork``,
+``DistributionalQNetwork``, ``QFunction``, ``DeterministicActor`` and
+``SquashedGaussianActor`` of ``mmtrl_tpu/models/agents.py``.
 
 One call of a recurrent agent takes a whole (T, B, ...) window: the
 rollout passes T = 1, the PPO update the full ``num_steps`` sequence.  The
@@ -197,6 +199,21 @@ class MLPActorCritic(nn.Module):
                 self.critic_out(self.critic_trunk(obs))[..., 0])
 
 
+class ContinuousActorCritic(MLPActorCritic):
+    """Gaussian policy with a state-independent log-std, and a separate
+    critic: cleanrl/ppo_continuous_action.py's Agent.  obs (N, obs_dim) ->
+    mean (N, A), log_std (N, A) (the ``log_std`` parameter, from zeros,
+    broadcast), value (N,)."""
+
+    def __init__(self, action_dim: int, obs_dim: int, device: DeviceLike = None):
+        super().__init__(action_dim, obs_dim, device=device)
+        self.log_std = nn.Parameter(torch.zeros(action_dim, device=self.actor_out.weight.device))
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        mean, value = super().forward(obs)
+        return mean, self.log_std.expand_as(mean), value
+
+
 def _lecun_dense(in_features: int, out_features: int, device: torch.device) -> Dense:
     """flax ``nn.Dense`` at its default init: a lecun-normal (truncated)
     weight and a zero bias."""
@@ -255,3 +272,63 @@ class DistributionalQNetwork(_QTrunk):
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         logits = self.q(self.features(obs))
         return torch.softmax(logits.reshape(-1, self.num_actions, self.n_atoms), dim=-1)
+
+
+# ---- continuous-control actors and critics (DDPG, TD3, SAC) -----------------
+class QFunction(nn.Module):
+    """Q(s, a): a 256-256 ReLU ``MLPTower`` on the concatenated observation
+    and action, a lecun-normal output (cleanrl/ddpg_continuous_action_jax.py's
+    QNetwork).  obs (B, obs_dim), action (B, A) -> (B,)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.MLPTower_0 = MLPTower(obs_dim + action_dim, (256, 256), activation="relu",
+                                   device=device)
+        self.Dense_0 = _lecun_dense(256, 1, device)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(self.MLPTower_0(torch.cat([obs, action], dim=-1)))[..., 0]
+
+
+class DeterministicActor(nn.Module):
+    """The tanh-squashed deterministic policy of DDPG and TD3: a 256-256
+    ReLU ``MLPTower``, a lecun-normal ``Dense``, tanh, then the action
+    space's scale and bias (buffers, not in the state dict, as flax keeps
+    them in the module's fields).  obs (B, obs_dim) -> action (B, A)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, action_scale: Sequence[float],
+                 action_bias: Sequence[float], device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.MLPTower_0 = MLPTower(obs_dim, (256, 256), activation="relu", device=device)
+        self.Dense_0 = _lecun_dense(256, action_dim, device)
+        for name, value in (("action_scale", action_scale), ("action_bias", action_bias)):
+            self.register_buffer(name, torch.tensor(value, device=device), persistent=False)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = torch.tanh(self.Dense_0(self.MLPTower_0(obs)))
+        return x * self.action_scale + self.action_bias
+
+
+LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
+
+
+class SquashedGaussianActor(nn.Module):
+    """SAC's actor: a 256-256 ReLU ``MLPTower``, lecun-normal ``mean`` and
+    ``log_std`` heads, the log-std squashed by tanh into [LOG_STD_MIN,
+    LOG_STD_MAX] (cleanrl/sac_continuous_action.py:110-140).  obs ->
+    (mean, log_std), each (B, A); the sampler squashes and scales."""
+
+    def __init__(self, obs_dim: int, action_dim: int, device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.MLPTower_0 = MLPTower(obs_dim, (256, 256), activation="relu", device=device)
+        self.mean = _lecun_dense(256, action_dim, device)
+        self.log_std = _lecun_dense(256, action_dim, device)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.MLPTower_0(obs)
+        log_std = torch.tanh(self.log_std(x))
+        log_std = LOG_STD_MIN + 0.5 * (LOG_STD_MAX - LOG_STD_MIN) * (log_std + 1)
+        return self.mean(x), log_std

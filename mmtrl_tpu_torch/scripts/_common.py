@@ -18,6 +18,8 @@ from torch import nn
 
 from mmtrl_tpu_torch import resolve_device
 from mmtrl_tpu_torch.algos.ppo import PPOConfig
+from mmtrl_tpu_torch.envs.base import Environment
+from mmtrl_tpu_torch.envs.registry import make, registry
 
 
 def field(default, help="", **kw):  # noqa: A002
@@ -92,6 +94,7 @@ def ppo_config_from(args, **overrides) -> PPOConfig:
         vf_coef=args.vf_coef,
         max_grad_norm=args.max_grad_norm,
         clip_rewards=getattr(args, "clip_rewards", False),
+        rpo_alpha=getattr(args, "rpo_alpha", 0.0),
         target_kl=getattr(args, "target_kl", None),
     )
     base.update(overrides)
@@ -118,3 +121,13 @@ def seeded(seed: int, device: torch.device, build: Callable[[], nn.Module]) -> n
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         return build()
+
+
+def make_registry_env(env_id: str, device: torch.device) -> Environment:
+    """The registry's env on ``device``.  The JAX scripts take any other id
+    through ``gym_bridge.make_any``, a pool of gymnasium envs on the host,
+    which is not ported: such an id raises."""
+    if env_id.lower() not in registry:
+        raise NotImplementedError(f"--env-id {env_id}: gymnasium host envs (JAX's "
+                                  "gym_bridge.make_any) are not ported yet (ROADMAP A.7)")
+    return make(env_id, device=device)

@@ -36,13 +36,20 @@ CLASSIC_MODULES = [
     "envs/classic/__init__.py", "envs/classic/_base.py", "envs/classic/cartpole.py",
     "envs/classic/acrobot.py", "envs/classic/mountain_car.py", "algos/offpolicy/runner.py",
     "scripts/dqn.py", "scripts/c51.py", "scripts/ppo.py",
+    # the continuous half
+    "envs/classic/pendulum.py", "envs/wrappers.py", "models/distributions.py",
+    "models/agents.py", "algos/ppo/core.py", "algos/offpolicy/ddpg.py",
+    "algos/offpolicy/td3.py", "algos/offpolicy/sac.py", "convert.py",
+    "scripts/ppo_continuous_action.py", "scripts/rpo_continuous_action.py",
+    "scripts/ddpg_continuous_action.py", "scripts/td3_continuous_action.py",
+    "scripts/sac_continuous_action.py",
 ]
 
 
 @pytest.mark.parametrize("name", CLASSIC_MODULES)
 def test_classic_modules_are_scanned(name):
-    """The classic-control slice's new modules are among the scanned
-    sources, so the two tests above cover them."""
+    """The classic-control slices' modules, discrete and continuous, are
+    among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 
 

@@ -308,7 +308,7 @@ class _JaxUpdate:
 def _port_update(jupdate, jrs, data):
     """The port's update from the JAX runner's state, converted."""
     carry0, rollout, (obs, done, carry) = data
-    # rpo_alpha belongs to the continuous variant, which the port lacks
+    # rpo_alpha is read only by the continuous variant
     jfields = dataclasses.asdict(jupdate.cfg)
     assert jfields.pop("rpo_alpha") == 0.0
     cfg = PPOConfig(**jfields)

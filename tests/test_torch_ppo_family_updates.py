@@ -203,7 +203,7 @@ def test_make_ppo_update_matches_jax():
     np.testing.assert_array_equal(np.asarray(key), np.asarray(jrs1.key))
 
     fields = dataclasses.asdict(jcfg)
-    assert fields.pop("rpo_alpha") == 0.0  # the continuous variant's, not ported
+    assert fields.pop("rpo_alpha") == 0.0  # read only by the continuous variant
     cfg = PPOConfig(**fields)
     model = _load(CNNAgent(4, "small", input_scale=1.0, device="cpu"), jrs0.train_state.params)
     names = [n for n, _ in model.named_parameters()]

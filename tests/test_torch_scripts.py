@@ -197,7 +197,7 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 @pytest.mark.parametrize("module,argv,item", [
     (ppg, ["--env-id", "procmaze"], "A.7"),
-    (evaluate, ["--script", "ppo", "--env-id", "Pendulum-v1"], "A.6"),
+    (minecraft_cnn, ["--capture-video"], "A.9"),
     (dqn_rom, ["--track"], "A.9"),
     (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
 ])
@@ -205,6 +205,23 @@ def test_unported_branches_name_their_roadmap_item(module, argv, item, in_tmp):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         module.main(cli(module.Args, ["--cuda", "False", "--load-from", "x"] + argv
                         if module is evaluate else ["--cuda", "False"] + argv))
+
+
+def test_evaluate_ppo_on_pendulum_fails_as_the_jax_script_does(monkeypatch, in_tmp):
+    """``evaluate --script ppo --env-id Pendulum-v1``: both twins build the
+    env, then ``MLPActorCritic(num_actions=env.num_actions)`` on its Box
+    action space, which has no ``n``: the same AttributeError, before any
+    checkpoint is read (JAX ``scripts/evaluate.py:71-73``)."""
+    monkeypatch.setenv("MMTRL_NO_COMPILE_CACHE", "1")  # the JAX cli's own cache
+    jax_evaluate = _jax_script("evaluate")
+    from mmtrl_tpu.core.config import cli as jax_cli
+
+    argv = ["--script", "ppo", "--env-id", "Pendulum-v1", "--load-from", "missing"]
+    with pytest.raises(AttributeError) as jax_error:
+        jax_evaluate.main(jax_cli(jax_evaluate.Args, argv))
+    with pytest.raises(AttributeError) as port_error:
+        evaluate.main(cli(evaluate.Args, ["--cuda", "False"] + argv))
+    assert str(port_error.value) == str(jax_error.value) == "'Box' object has no attribute 'n'"
 
 
 def _jax_script(name):
@@ -336,7 +353,8 @@ def test_registry_names_what_it_has():
     assert make("CartPole-v1", device="cpu").num_actions == 2
     with pytest.raises(KeyError, match="available: \\['acrobot', 'acrobot-v1', 'brick_native', "
                                       "'cartpole', 'cartpole-v1', 'minecraft', 'minecraft2d', "
-                                      "'mountaincar', 'mountaincar-v0', 'rally_native', "
+                                      "'mountaincar', 'mountaincar-v0', 'pendulum', "
+                                      "'pendulum-v1', 'rally_native', "
                                       "'skeleton_plus', 'skeleton_plus_native', "
                                       "'skeletonplus'\\]"):
         make("doorpuzzle", device="cpu")
