@@ -119,7 +119,19 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 evaluation, the next 128 steps of each profiled, SAC's
                 ``--load-from`` resume equal bit for bit to those steps in
                 memory.  No kernel lies on this path: zero launches.
-14. timing   -- each kernel, its plain version and the PyTorch call that
+14. levels   -- procmaze and the two-agent Minecraft2d: each env card vs
+                CPU for 300 steps under the same draws (procmaze at 64 envs,
+                the two-agent env at 8 joint envs: state, reward, done and
+                info equal, obs equal or, for the two-agent render, within
+                1e-5) and timed alone at two batches; ``ppg --env-id
+                procmaze --num-levels 200`` through ``main`` at its defaults
+                (one cycle, the int8 aux store, then the greedy evaluation on
+                the train window and on [800, 1000), timed apart) and one
+                profiled policy rollout + update; ``ppo_ma_minecraft``
+                through ``main`` at its defaults, 3 updates with a save and a
+                fourth profiled; its agent and one update card vs CPU in
+                float64.  No kernel lies on these paths: zero launches.
+15. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -2752,6 +2764,260 @@ def phase_continuous(smi: str, tmp: str):
     restoring_flags(continuous_checks, smi, tmp)
 
 
+# Procmaze with PPG's train/held-out split and two-agent Minecraft2d (the
+# device-resident envs of ROADMAP A.7), at the entry points' defaults.  No
+# kernel of the port lies on these paths (no attention).
+LEVELS_ENV_STEPS = 300  # steps of each card-vs-CPU env run
+LEVELS_ENV_SLOTS = {"procmaze": 64, "minecraft_ma": 16}  # 64 envs; 8 joint envs
+LEVELS_TIMED = {"procmaze": (8, 64), "minecraft_ma": (8, 16)}  # batches timed alone
+# The two-agent frame: the render einsum in float32 on each device, within
+# the CPU tests' OBS_ATOL of the JAX env (ProcMaze's planes are exact)
+LEVELS_OBS_ATOL = 1e-5
+# ppg --env-id procmaze --num-levels 200 at its defaults, one cycle (8 envs
+# x 64 steps x 32 rollouts), then the held-out evaluation (64 x 512 a window)
+LEVELS_PPG_ARGS = ["--env-id", "procmaze", "--num-levels", "200", "--total-timesteps", "16384"]
+# ppo_ma_minecraft at its defaults (4 joint envs = 8 slots x 128 steps, 4 x 4
+# minibatches), 3 updates with a save
+LEVELS_MA_ARGS = ["--total-timesteps", "3072", "--save-interval", "3"]
+
+
+def taped_pair(cls):
+    """(cpu env, card env, tape): the card's resets take the CPU's draws,
+    which ``tape`` records; the two share one host-built level bank."""
+    tape = []
+    cpu = cls(device="cpu")
+
+    def record(n, generator):
+        out = cpu.draw_reset(n, generator)
+        tape.append(out)
+        return out
+
+    cpu.sampler = record
+    return cpu, cls(device="cuda", sampler=lambda n, generator: tape.pop(0)), tape
+
+
+def levels_env_checks(smi: str):
+    """(a) ProcMaze at 64 envs and the two-agent Minecraft2d at 8 joint envs
+    (16 slots), card vs CPU for 300 steps under random actions, each side
+    from its own state, the card's resets fed the CPU's draws: state,
+    reward, done and info equal, obs equal (procmaze) or within
+    ``LEVELS_OBS_ATOL``; then each env timed alone at two batches."""
+    from mmtrl_tpu_torch.envs.minecraft2d_ma import MultiAgentMinecraft2d
+    from mmtrl_tpu_torch.envs.procmaze import ProcMaze
+
+    g = torch.Generator().manual_seed(SEED)
+    classes = {"procmaze": ProcMaze, "minecraft_ma": MultiAgentMinecraft2d}
+    for name, cls in classes.items():
+        n = LEVELS_ENV_SLOTS[name]
+        t0 = time.perf_counter()
+        cpu, card_env, tape = taped_pair(cls)
+        _, state = cpu.reset(n, g)
+        tape.clear()
+        card_state = to_device(state, "cuda")
+        equal, obs_err, dones, solved = True, 0.0, 0, 0
+        for _ in range(LEVELS_ENV_STEPS):
+            action = torch.randint(0, 4, (n,), generator=g)
+            obs, state, r, d, info = cpu.step(state, action, g)
+            c_obs, card_state, c_r, c_d, c_info = card_env.step(card_state, action.cuda())
+            ours = tensors_of(card_state)
+            equal &= all(torch.equal(ours[k].cpu(), v) for k, v in tensors_of(state).items())
+            equal &= torch.equal(c_r.cpu(), r) and torch.equal(c_d.cpu(), d)
+            equal &= set(c_info) == set(info) and all(
+                torch.equal(c_info[k].cpu(), v) for k, v in info.items() if k != "final_obs")
+            obs_err = max(obs_err, (c_obs.cpu() - obs).abs().max().item())
+            if "final_obs" in info:
+                obs_err = max(obs_err, (c_info["final_obs"].cpu() - info["final_obs"]).abs()
+                              .max().item())
+            dones += int(d.sum())
+            solved += int(info["solved"].sum()) if "solved" in info else 0
+        atol = 0.0 if name == "procmaze" else LEVELS_OBS_ATOL
+        ok = equal and obs_err <= atol and dones >= n and not tape
+        emit("levels_env", env=name, slots=n, steps=LEVELS_ENV_STEPS, state_reward_done_equal=equal,
+             obs_max_abs_err=obs_err, obs_atol=atol, dones=dones, solved=solved,
+             seconds=time.perf_counter() - t0, card=smi, ok=ok)
+        check(ok, f"{name} card vs CPU: equal {equal}, obs {obs_err}, dones {dones}")
+        for m in LEVELS_TIMED[name]:
+            env = cls(device="cuda")
+            gc = torch.Generator(device="cuda").manual_seed(SEED)
+            _, s = env.reset(m, gc)
+            a = torch.randint(0, 4, (m,), generator=gc, device="cuda")
+            for _ in range(20):
+                _, s, _, _, _ = env.step(s, a, gc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                _, s, _, _, _ = env.step(s, a, gc)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 200
+            _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+            emit("levels_env", env=name, timed_slots=m, ms_per_step=ms,
+                 slot_steps_per_s=m * 1e3 / ms, device_ops_per_step=ops, device_busy_ms=busy,
+                 card=smi)
+
+
+def levels_ppg_run(smi: str, tmp: str):
+    """(b) ``ppg --env-id procmaze --num-levels 200`` through ``main`` at its
+    defaults: one cycle with the int8 aux store, the train and held-out
+    evaluation (timed apart) and its two scalars; then one policy rollout +
+    update of the trained run, profiled."""
+    import os
+
+    from mmtrl_tpu_torch.algos.ppo.core import feedforward_update
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import ppg
+
+    args = cli(ppg.Args, LEVELS_PPG_ARGS)
+    cfg = ppg.ppg_config_from(args)
+    check(cfg.aux_store_dtype == "int8", f"procmaze's aux store is {cfg.aux_store_dtype}")
+    evaluation, plain = {}, ppg.generalization
+
+    def timed_generalization(*a, **k):
+        t0 = time.perf_counter()
+        res = plain(*a, **k)
+        torch.cuda.synchronize()
+        evaluation["wall_s"] = time.perf_counter() - t0
+        evaluation["metrics"] = res[1]
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    ppg.generalization = timed_generalization
+    try:
+        t0 = time.perf_counter()
+        out = ppg.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        ppg.generalization = plain
+    hist, res = out["history"], out["generalization"]
+    episodes = {tag: int(m["eval/episodes"]) for tag, m in evaluation["metrics"].items()}
+    run_dir = os.path.join(os.environ["MMTRL_RUN_ROOT"], out["run_name"])
+    emit("levels_ppg", run="scripts.ppg --env-id procmaze --num-levels 200", cycles=len(hist),
+         global_step=out["global_step"], cycle_wall_s=hist[0]["wall_s"],
+         eval_wall_s=evaluation["wall_s"], main_wall_s=wall, train_return=res["train"],
+         heldout_return=res["test"], eval_episodes=episodes,
+         episodic_return=out["episodic_return"], episode_count=out["episode_count"],
+         losses={k: v for k, v in hist[0].items() if k.startswith("losses/")},
+         aux_store=cfg.aux_store_dtype, aux_store_mb=cfg.batch_size * cfg.n_iteration
+         * 3 * 84 * 84 / 2**20, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=smi)
+    check(len(hist) == 1 and out["global_step"] == 16384, f"ppg procmaze: {len(hist)} cycles")
+    check(all(math.isfinite(v) for k, v in hist[0].items() if k.startswith("losses/")),
+          f"ppg procmaze: losses {hist[0]}")
+    check(set(res) == {"train", "test"} and all(math.isfinite(v) for v in res.values())
+          and min(episodes.values()) >= 2 * ppg.EVAL_ENVS,
+          f"ppg procmaze evaluation: {res}, {episodes} episodes")
+    check(len(os.listdir(run_dir)) == 2, f"ppg procmaze: event files {os.listdir(run_dir)}")
+
+    algo, _, _ = ppg.build(args)
+    policy_cfg = dataclasses.replace(cfg, update_epochs=cfg.e_policy, target_kl=None,
+                                     clip_rewards=False)
+
+    def policy_iteration():
+        rs, data = algo.rollout(out["runner"])
+        return feedforward_update(policy_cfg, rs, data, None, allow_unused=True)
+
+    policy_iteration()  # warm
+    _, wall, ops, busy, top = device_profile(policy_iteration)
+    emit("levels_ppg", run="ppg procmaze profiled policy rollout + update",
+         env_steps=cfg.batch_size, wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+
+def levels_ma_checks(smi: str, tmp: str):
+    """(c) ``ppo_ma_minecraft`` through ``main`` at its defaults, 3 updates
+    with a save, and a fourth in memory, profiled; then its agent on
+    two-agent observations and one
+    ``make_ppo`` update from a CPU rollout (8 slots x 16 steps, 4 x 4
+    minibatches) card vs CPU in float64."""
+    import copy
+    import os
+
+    from mmtrl_tpu_torch.algos.ppo import PPOConfig, RunnerState, make_ppo
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs.minecraft2d_ma import MultiAgentMinecraft2d
+    from mmtrl_tpu_torch.ops.fused_optim import init_adam_state
+    from mmtrl_tpu_torch.scripts import ppo_ma_minecraft
+
+    save_dir = os.path.join(tmp, "levels_ck")
+    torch.cuda.reset_peak_memory_stats()
+    out = ppo_ma_minecraft.main(cli(ppo_ma_minecraft.Args,
+                                    LEVELS_MA_ARGS + ["--save-dir", save_dir]))
+    for row in out["history"]:
+        emit("levels_ma", run="scripts.ppo_ma_minecraft", **row, card=smi)
+    emit("levels_ma", run="scripts.ppo_ma_minecraft", sps_of_run=out["sps"],
+         updates=len(out["history"]), global_step=out["global_step"],
+         episodes=out["episode_count"], max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=smi)
+    check(len(out["history"]) == 3 and out["global_step"] == 3072 and all(
+        math.isfinite(v) for row in out["history"] for k, v in row.items()
+        if k.startswith("losses/")), f"ppo_ma_minecraft: {out['history']}")
+    check(os.path.exists(os.path.join(save_dir, out["run_name"])), "ppo_ma_minecraft: no save")
+    algo, cfg, _ = ppo_ma_minecraft.build(cli(ppo_ma_minecraft.Args, []))
+    _, wall, ops, busy, top = device_profile(lambda: algo.train_iteration(out["runner"]))
+    emit("levels_ma", run="ppo_ma_minecraft profiled update 4", slot_steps=cfg.batch_size,
+         wall_s=wall, sps=cfg.batch_size / wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+    args = cli(ppo_ma_minecraft.Args, ["--cuda", "False"])
+    cfg = PPOConfig(num_envs=8, num_steps=16, num_minibatches=4, update_epochs=4,
+                    total_timesteps=3 * 128, clip_rewards=True)
+    env = MultiAgentMinecraft2d(device="cpu")
+    model = ppo_ma_minecraft.make_agent(args, env, torch.device("cpu"))
+    g = torch.Generator().manual_seed(SEED)
+    algo = make_ppo(env, model, cfg)
+    rs, data = algo.rollout(algo.init_runner(g))
+    perms = [torch.randperm(cfg.batch_size, generator=g) for _ in range(cfg.update_epochs)]
+    obs = data[0].reshape(-1, 3, 84, 84).double()
+    results = {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(device, torch.float64)
+        with torch.no_grad():
+            outputs = m(obs.to(device))
+        run = RunnerState(model=m, opt_state=init_adam_state(list(m.parameters())),
+                          env_state=None, obs=rs.obs.to(device, torch.float64),
+                          done=rs.done.to(device), carry=(), stats=None, generator=None)
+        rollout = tuple(x.to(device, torch.float64) if x.is_floating_point() else x.to(device)
+                        for x in data)
+        run, metrics = make_ppo(None, m, cfg).update_from_rollout(run, rollout, perms)
+        results[device] = (outputs, run.model, {k: float(v) for k, v in metrics.items()})
+    out_err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(results["cuda"][0], results["cpu"][0]))
+    err, at = param_err([results["cuda"][1]], [results["cpu"][1]])
+    moved = param_err([results["cpu"][1]], [model])[0]
+    ok = out_err <= PPO_PARAM_ATOL_FLOAT64 and err <= PPO_PARAM_ATOL_FLOAT64 and moved > 0
+    emit("levels_ma", check="CNNAgent (3 channels) and one make_ppo update card vs cpu in "
+         "float64", frames=obs.shape[0], agent_max_abs_err=out_err,
+         opt_steps=cfg.update_epochs * cfg.num_minibatches, worst_param_abs_err=err,
+         worst_param=at, atol=PPO_PARAM_ATOL_FLOAT64, largest_param_move=moved,
+         metrics_card_cpu={k: (results["cuda"][2][k], results["cpu"][2][k])
+                           for k in results["cpu"][2]}, card=smi, ok=ok)
+    check(ok, f"two-agent agent/update card vs CPU in float64: {out_err}, {err} at {at}")
+
+
+def levels_checks(smi: str, tmp: str):
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    t0, seconds = time.perf_counter(), {}
+    t = time.perf_counter()
+    levels_env_checks(smi)
+    seconds["levels_env_checks"] = time.perf_counter() - t
+    for step in (levels_ppg_run, levels_ma_checks):
+        t = time.perf_counter()
+        step(smi, tmp)
+        seconds[step.__name__] = time.perf_counter() - t
+    emit("levels", seconds=time.perf_counter() - t0, by_step=seconds, card=smi)
+
+
+def phase_levels(smi: str, tmp: str):
+    """Procmaze and the two-agent Minecraft2d: (a) both envs card vs CPU
+    under the same draws, each timed alone; (b) ppg --env-id procmaze through
+    main (one cycle, the held-out evaluation) and a profiled policy
+    iteration; (c) ppo_ma_minecraft through main and a profiled update,
+    its agent and one update card vs CPU in float64.  No kernel of the port
+    lies on these paths."""
+    restoring_flags(levels_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -2838,6 +3104,11 @@ def main() -> int:
         continuous_launches = read_counts()
         check(not any(continuous_launches.values()),
               f"the continuous phase launched attention kernels: {continuous_launches}")
+        reset_counts()
+        phase_levels(smi, tmp)
+        levels_launches = read_counts()
+        check(not any(levels_launches.values()),
+              f"the levels phase launched attention kernels: {levels_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -2860,6 +3131,8 @@ def main() -> int:
             # the classic-control slices: no attention on their paths
             "classic_launches": classic_launches[name],
             "continuous_launches": continuous_launches[name],
+            # procmaze (PPG's held-out split) and the two-agent Minecraft2d
+            "levels_launches": levels_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,11 @@ One ``train_iteration`` is a PPG cycle:
                   ``beta_clone`` * KL(old pi || new pi).
 
 Kept from the JAX module: the stored observations are cast to
-``aux_store_dtype`` (bfloat16 by default; Minecraft2d's [-1, 1] floats are
-rounded by it, so the aux phase sees what JAX's sees), flattened to one row
-each; the rollout's rewards are never sign-clipped and there is no
+``aux_store_dtype``, flattened to one row each, and read back with
+``.float()``.  bfloat16 (the default) rounds Minecraft2d's [-1, 1] floats
+as JAX's store does; int8 (``scripts/ppg.py``'s choice on procmaze) holds
+procmaze's {-1, +1} planes exactly in a quarter of float32's bytes.  The
+rollout's rewards are never sign-clipped and there is no
 target-KL stop.  Both phases step the one clipped, annealed optimizer, whose
 anneal counts PPG cycles.
 """

@@ -11,6 +11,7 @@ package's.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import socket
 import struct
@@ -138,12 +139,19 @@ def _text_value(tag: str, text: str) -> bytes:
                         + _bytes_field(8, tensor) + _bytes_field(9, metadata))
 
 
+_writer_ids = itertools.count()
+
+
 class EventFileWriter:
-    """Appends events to ``<logdir>/events.out.tfevents.<time>.<host>``."""
+    """Appends events to ``<logdir>/events.out.tfevents.<time>.<host>.<pid>.<n>``;
+    the process id and a per-process count, as TensorBoard's own writer
+    names its files, keep two writers of one run (a training run's and its
+    evaluation's) from truncating each other within a second."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
-        name = f"events.out.tfevents.{int(time.time()):010d}.{socket.gethostname()}"
+        name = (f"events.out.tfevents.{int(time.time()):010d}.{socket.gethostname()}"
+                f".{os.getpid()}.{next(_writer_ids)}")
         self.path = os.path.join(logdir, name)
         self._file = open(self.path, "wb")
         self._write(_event(time.time(), 0, file_version="brain.Event:2"))

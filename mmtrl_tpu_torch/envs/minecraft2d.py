@@ -65,6 +65,16 @@ class MinecraftState:
     t: torch.Tensor  # (n,) long
 
 
+def render_frame(bank: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """(n, 84, 84) gray frames in [-1, 1] of the (n, 25) tile maps ``tiles``:
+    one einsum of their one-hot against the render ``bank``."""
+    onehot = F.one_hot(tiles, N_TILES).float()
+    # Clip to [0, 255] like the reference's uint8 saturation before the
+    # affine rescale (bicubic can overshoot at tile edges).
+    frame = torch.einsum("npt,ptyx->nyx", onehot, bank).clamp(0.0, 255.0)
+    return frame * (2.0 / 255.0) - 1.0
+
+
 class Minecraft2d(Environment):
     def __init__(self, use_audio: bool = True, device: DeviceLike = None,
                  sampler: Optional[Sampler] = None):
@@ -105,11 +115,7 @@ class Minecraft2d(Environment):
         return tiles
 
     def _obs(self, s: MinecraftState) -> torch.Tensor:
-        onehot = F.one_hot(self._tile_map(s), N_TILES).float()
-        # Clip to [0, 255] like the reference's uint8 saturation before the
-        # affine rescale (bicubic can overshoot at tile edges).
-        frame = torch.einsum("npt,ptyx->nyx", onehot, self._bank).clamp(0.0, 255.0)
-        frame = frame * (2.0 / 255.0) - 1.0
+        frame = render_frame(self._bank, self._tile_map(s))
         if not self.use_audio:
             return frame[:, None]
         d2 = ((s.agent - s.gem) ** 2).sum(dim=-1)

@@ -1,23 +1,34 @@
 """Phasic Policy Gradient, the reference's cleanrl/ppg_procgen.py; twin of
 ``scripts/ppg.py``.  The IMPALA CNN agent and the PPG phase structure are
-the reference's.  The JAX twin's ``procmaze`` env (and the train/held-out
-evaluation that only it runs) is not ported yet: ``--env-id procmaze``
-raises, naming ROADMAP A.7.
+the reference's; the benchmark env is ``procmaze``, the procgen-contract
+distribution of generated levels (envs/procmaze.py), with the reference's
+``--num-levels``/``--start-level`` train split (ppg_procgen.py:73-76).
+After training on procmaze the run evaluates the policy greedily on its
+train window and on the held-out window [800, 1000), prints both returns
+and logs them as ``charts/train_eval_return`` and
+``charts/heldout_return``.
 
+    python -m mmtrl_tpu_torch.scripts.ppg --env-id procmaze --num-levels 200
     python -m mmtrl_tpu_torch.scripts.ppg --env-id minecraft --n-iteration 4
     python -m mmtrl_tpu_torch.scripts.ppg --cuda False --num-envs 2 --num-steps 4 --n-iteration 2 --total-timesteps 16
 """
 
 import dataclasses
 
+import torch
+
 from mmtrl_tpu_torch.algos.ppo.ppg import PPGAgent, PPGConfig, cycle_config, make_ppg
 from mmtrl_tpu_torch.algos.ppo.runner import run_training
 from mmtrl_tpu_torch.core.config import cli
+from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs import make
+from mmtrl_tpu_torch.envs.base import Environment
+from mmtrl_tpu_torch.envs.procmaze import ProcMaze
 from mmtrl_tpu_torch.scripts._common import BasePPOArgs, device_from, field, seeded
+from mmtrl_tpu_torch.utils.evaluate import evaluate_policy
 
-PROCMAZE = ("procmaze and its train/held-out evaluation are not ported yet "
-            "(ROADMAP A.7)")
+HELD_OUT = (800, 1000)  # procmaze's held-out level window
+EVAL_ENVS = 64
 
 
 @dataclasses.dataclass
@@ -47,9 +58,17 @@ class Args(BasePPOArgs):
     )
 
 
+def is_procmaze(args) -> bool:
+    return args.env_id.lower() == "procmaze"
+
+
 def ppg_config_from(args) -> PPGConfig:
     """The JAX twin's config, field for field (it passes no ``norm_adv``,
     ``clip_vloss``, ``clip_rewards`` or ``target_kl``)."""
+    if args.aux_store_dtype == "auto":
+        store = "int8" if is_procmaze(args) else "bfloat16"
+    else:
+        store = args.aux_store_dtype
     return PPGConfig(
         total_timesteps=args.total_timesteps,
         learning_rate=args.learning_rate,
@@ -69,8 +88,15 @@ def ppg_config_from(args) -> PPGConfig:
         e_auxiliary=args.e_auxiliary,
         beta_clone=args.beta_clone,
         num_aux_minibatches=args.num_aux_minibatches,
-        aux_store_dtype="bfloat16" if args.aux_store_dtype == "auto" else args.aux_store_dtype,
+        aux_store_dtype=store,
     )
+
+
+def make_env(args, device: torch.device) -> Environment:
+    if is_procmaze(args):
+        return make(args.env_id, num_levels=args.num_levels, start_level=args.start_level,
+                    device=device)
+    return make(args.env_id, device=device)
 
 
 def make_agent(args, env, device) -> PPGAgent:
@@ -82,18 +108,51 @@ def make_agent(args, env, device) -> PPGAgent:
 def build(args):
     """(algorithm, run config, device) of a run: one ``train_iteration`` is a
     PPG cycle of n_iteration rollouts, and the run config counts cycles."""
-    if args.env_id.lower() == "procmaze":
-        raise NotImplementedError(PROCMAZE)
     device = device_from(args)
-    env = make(args.env_id, device=device)
+    env = make_env(args, device)
     cfg = ppg_config_from(args)
     return make_ppg(env, make_agent(args, env, device), cfg), cycle_config(cfg), device
+
+
+def generalization(args, model: torch.nn.Module, device: torch.device):
+    """The procgen generalization metric (ppg_procgen.py's purpose): the
+    greedy policy's mean episodic return on the train level window and on
+    the disjoint held-out window, 64 envs x ``--eval-rollout-steps`` each.
+    Returns ({"train": ..., "test": ...}, the two evaluations' metrics)."""
+    tr_lo, tr_hi = args.start_level, args.start_level + args.num_levels
+    if max(tr_lo, HELD_OUT[0]) < min(tr_hi, HELD_OUT[1]):
+        raise SystemExit(
+            f"train levels [{tr_lo},{tr_hi}) overlap the held-out "
+            "window [800,1000) — shrink --num-levels/--start-level"
+        )
+    test_env = ProcMaze(num_levels=HELD_OUT[1] - HELD_OUT[0], start_level=HELD_OUT[0],
+                        device=device)
+    res, metrics = {}, {}
+    for i, (tag, env) in enumerate((("train", make_env(args, device)), ("test", test_env))):
+        generator = torch.Generator(device=device).manual_seed(args.seed + 1000 + i)
+        m = evaluate_policy(env, model, generator, num_envs=EVAL_ENVS,
+                            num_steps=args.eval_rollout_steps)
+        res[tag] = float(m["eval/episodic_return"])
+        metrics[tag] = m
+        print(f"procmaze {tag} levels: return={res[tag]:.2f} over "
+              f"{int(m['eval/episodes'])} episodes")
+    return res, metrics
 
 
 def main(args=None):
     args = args or cli(Args)
     algo, cfg, device = build(args)
-    return run_training(algo, cfg, args, device)
+    out = run_training(algo, cfg, args, device)
+    if is_procmaze(args):
+        res, _ = generalization(args, out["runner"].model, device)
+        out["generalization"] = res
+        # the split in TensorBoard, so a tuner can optimise the held-out
+        # return (the reference's tuner reads TB scalars back)
+        w = MetricsWriter(out["run_name"])
+        w.scalar("charts/heldout_return", res["test"], out["global_step"])
+        w.scalar("charts/train_eval_return", res["train"], out["global_step"])
+        w.close()
+    return out
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "tensorboard", "mmtrl_tpu"}
 SCRIPTS = [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py",
-           REPO / "tools" / "count_classic_ops.py"]
+           REPO / "tools" / "count_classic_ops.py", REPO / "tools" / "count_level_ops.py"]
 SOURCES = sorted((REPO / "mmtrl_tpu_torch").rglob("*.py")) + SCRIPTS
 
 
@@ -43,13 +43,17 @@ CLASSIC_MODULES = [
     "scripts/ppo_continuous_action.py", "scripts/rpo_continuous_action.py",
     "scripts/ddpg_continuous_action.py", "scripts/td3_continuous_action.py",
     "scripts/sac_continuous_action.py",
+    # procmaze and the two-agent Minecraft2d
+    "envs/procmaze.py", "envs/minecraft2d_ma.py", "scripts/ppg.py",
+    "scripts/ppo_ma_minecraft.py",
 ]
 
 
 @pytest.mark.parametrize("name", CLASSIC_MODULES)
 def test_classic_modules_are_scanned(name):
-    """The classic-control slices' modules, discrete and continuous, are
-    among the scanned sources, so the two tests above cover them."""
+    """The later slices' modules (classic control, discrete and continuous;
+    procmaze and the two-agent env) are among the scanned sources, so the
+    two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 
 

@@ -1,5 +1,6 @@
-"""Whole updates of the port's feedforward PPO, PPO + RND and PPG against
-the JAX package's on the CPU, from the same state and converted weights.
+"""Whole updates of the port's feedforward PPO, PPO + RND and PPG (on
+Minecraft2d, and on procmaze with its int8 aux store) against the JAX
+package's on the CPU, from the same state and converted weights.
 
 The JAX algorithms expose only ``train_iteration`` (a PPG cycle for PPG),
 so each test rebuilds JAX's rollout from JAX's own ``model.apply``,
@@ -28,6 +29,7 @@ from mmtrl_tpu.algos.ppo.rnd import RNDConfig as JaxRNDConfig
 from mmtrl_tpu.algos.ppo.rnd import RNDNetwork as JaxRNDNetwork
 from mmtrl_tpu.algos.ppo.rnd import make_rnd_ppo as jax_make_rnd_ppo
 from mmtrl_tpu.envs.minecraft2d import Minecraft2d as JaxMinecraft2d
+from mmtrl_tpu.envs.procmaze import ProcMaze as JaxProcMaze
 from mmtrl_tpu.models import CNNAgent as JaxCNNAgent
 from mmtrl_tpu.models import distributions as jax_dist
 from mmtrl_tpu_torch.algos.ppo import PPOConfig, RunnerState, make_ppo
@@ -42,6 +44,7 @@ from mmtrl_tpu_torch.algos.ppo.rnd import (
 )
 from mmtrl_tpu_torch.convert import agent_params_from_flax, ppo_opt_state_from_flax
 from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+from mmtrl_tpu_torch.envs.procmaze import ProcMaze
 from mmtrl_tpu_torch.envs.wrappers import RunningStat
 from mmtrl_tpu_torch.models.agents import CNNAgent
 
@@ -421,6 +424,78 @@ def test_ppg_cycle_matches_jax(n_iteration):
     _compare_params(rs.model, jrs1.train_state.params, rs.opt_state, jrs1.train_state.opt_state,
                     "ppg", **(CHAINED if chained else {}))
     _compare_metrics(metrics, jmetrics, CHAINED_METRIC_RTOL if chained else METRIC_RTOL)
+
+
+def test_ppg_cycle_with_int8_store_on_procmaze_matches_jax():
+    """One PPG cycle on procmaze (4 envs x 4 steps, one policy iteration, one
+    aux epoch), JAX's rollout rebuilt under its keys and its permutations
+    replayed, with the int8 aux store of ``scripts/ppg.py``'s procmaze
+    default: every stored observation comes back exact through
+    ``.float()``.  On procmaze's piecewise-constant {-1, +1} planes even
+    one policy iteration is chaotic in the weights (many positions share
+    each pre-activation, so a ReLU or max-pool window within rounding of
+    a switch moves a whole region's gradient, and Adam turns that into a
+    step of up to the learning rate): JAX's own cycle from weights moved by
+    1e-7 moves by 1.3e-6 here, and with two aux epochs by 5.9e-5 (CPU).  So
+    the test asserts that spread and holds the port to
+    test_ppg_cycle_matches_jax's CHAINED tolerances, by that test's own
+    rule.  It takes one aux epoch: with two, JAX's own spread (5.9e-5)
+    exceeds CHAINED's 5e-5 itself, and the port reads 6.9e-5."""
+    jcfg = JaxPPGConfig(num_envs=N_ENVS, num_steps=N_STEPS, num_minibatches=2, n_iteration=1,
+                        e_policy=1, e_auxiliary=1, num_aux_minibatches=2,
+                        total_timesteps=3 * BATCH, aux_store_dtype="int8")
+    jmodel = JaxPPGAgent(num_actions=4)
+    # the bank's first 200 levels: XLA compiles the 1,000-level bank, 33 MB
+    # of constants in every jitted function, far more slowly
+    env = JaxProcMaze(num_levels=200, total_levels=200)
+    init_runner, ppg_cycle = jax_make_ppg(env, jmodel, jcfg)
+    jrs0 = jax.jit(init_runner)(jax.random.PRNGKey(2))  # eager: 12 s on procmaze
+    cycle = jax.jit(ppg_cycle)
+    jrs1, jmetrics = cycle(jrs0)
+
+    key, perms = _split_perms(_skip_rollout_keys(jrs0.key, N_STEPS), 1, BATCH)
+    key, aux_perms = _split_perms(key, jcfg.e_auxiliary, BATCH)
+    np.testing.assert_array_equal(np.asarray(key), np.asarray(jrs1.key))
+
+    run = _feedforward_rollout(env, jmodel.apply, jcfg, lambda r: r)
+    end = []
+
+    def rollout(rs):
+        (_, obs, env_state, done, stats), data = run(
+            _to_flax(jrs0.train_state.params, rs.model), jrs0.key, jrs0.obs, jrs0.env_state,
+            jrs0.done, jrs0.stats)
+        end.append((obs, env_state, done, stats))
+        data = _torch_rollout(data)
+        assert torch.equal(data[0].to(torch.int8).float(), data[0])  # the ±1 planes
+        return dataclasses.replace(rs, obs=_t(obs), done=_t(done)), data
+
+    fields = dataclasses.asdict(jcfg)
+    fields.pop("rpo_alpha")
+    cfg = PPGConfig(**fields)
+    model = _load(PPGAgent(4, (3, 84, 84), device="cpu"), jrs0.train_state.params)
+    names = [n for n, _ in model.named_parameters()]
+    rs = RunnerState(model=model,
+                     opt_state=ppo_opt_state_from_flax(jax.device_get(jrs0.train_state.opt_state),
+                                                       names),
+                     env_state=None, obs=_t(jrs0.obs), done=_t(jrs0.done), carry=(), stats=None,
+                     generator=None)
+    port_env = ProcMaze(num_levels=200, total_levels=200, device="cpu")
+    rs, metrics = make_ppg(port_env, model, cfg).train_iteration(
+        rs, rollout, [perms], aux_perms)
+    _assert_same_end(end[0], jrs1)
+    assert int(jrs1.train_state.step) == cfg.opt_steps_per_update == 2 + 2
+    leaves, tree = jax.tree_util.tree_flatten(jrs0.train_state.params)
+    keys = jax.random.split(jax.random.PRNGKey(3), len(leaves))
+    moved = jax.tree_util.tree_unflatten(
+        tree, [x + 1e-7 * jax.random.normal(k, x.shape) for x, k in zip(leaves, keys)])
+    jrs_moved, _ = cycle(jrs0.replace(train_state=jrs0.train_state.replace(params=moved)))
+    spread = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in zip(
+        jax.tree_util.tree_leaves(jrs_moved.train_state.params),
+        jax.tree_util.tree_leaves(jrs1.train_state.params)))
+    assert spread > JAX_SPREAD_FLOOR, spread
+    _compare_params(rs.model, jrs1.train_state.params, rs.opt_state, jrs1.train_state.opt_state,
+                    "ppg int8", **CHAINED)
+    _compare_metrics(metrics, jmetrics, CHAINED_METRIC_RTOL)
 
 
 def test_grads_of_raises_on_a_parameter_the_loss_misses_unless_allowed():

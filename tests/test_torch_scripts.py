@@ -196,7 +196,7 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 
 @pytest.mark.parametrize("module,argv,item", [
-    (ppg, ["--env-id", "procmaze"], "A.7"),
+    (ppg, ["--env-id", "doorpuzzle"], "A.7"),
     (minecraft_cnn, ["--capture-video"], "A.9"),
     (dqn_rom, ["--track"], "A.9"),
     (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
@@ -353,10 +353,14 @@ def test_registry_names_what_it_has():
     assert make("CartPole-v1", device="cpu").num_actions == 2
     with pytest.raises(KeyError, match="available: \\['acrobot', 'acrobot-v1', 'brick_native', "
                                       "'cartpole', 'cartpole-v1', 'minecraft', 'minecraft2d', "
-                                      "'mountaincar', 'mountaincar-v0', 'pendulum', "
-                                      "'pendulum-v1', 'rally_native', "
+                                      "'minecraft_ma', 'mountaincar', 'mountaincar-v0', "
+                                      "'multiagentminecraft2d', 'pendulum', 'pendulum-v1', "
+                                      "'procmaze', 'rally_native', "
                                       "'skeleton_plus', 'skeleton_plus_native', "
                                       "'skeletonplus'\\]"):
+        make("no_such_env", device="cpu")
+    # JAX's ids that the port lacks name their item
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         make("doorpuzzle", device="cpu")
 
 
