@@ -131,7 +131,22 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 through ``main`` at its defaults, 3 updates with a save and a
                 fourth profiled; its agent and one update card vs CPU in
                 float64.  No kernel lies on these paths: zero launches.
-15. timing   -- each kernel, its plain version and the PyTorch call that
+15. pong_door -- Doorpuzzle and the two-player Pong: Doorpuzzle card vs
+                CPU for 300 steps at 64 envs under the same resets and slips
+                (state, reward, done and info equal, obs within 1e-6) and
+                timed alone at 16 and 64 envs; ``train --env-id doorpuzzle
+                --attn-type casl`` through ``main`` at 16 x 128, one update
+                and a save, the second resumed, profiled and saved,
+                ``evaluate --env-id doorpuzzle`` on that checkpoint; the
+                Pong slot observation card vs CPU at 8 joint envs and a pool
+                step at 16 timed (emulator and observation apart);
+                ``ppo_ma_pong`` through ``main`` at its defaults, likewise
+                two updates (the second resumed, profiled and saved), a
+                third resumed from that save equal bit for bit to the same
+                resume from the runner in memory, and a greedy evaluation of
+                256 pool steps.  No kernel lies on these paths: zero
+                launches.
+16. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -917,6 +932,25 @@ def device_profile(fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     busy = sum(e.duration_ns() for e in kernels) / 1e6
     return out, wall, len(kernels), busy, [[name, ms, calls] for name, (ms, calls) in top]
+
+
+def env_step_timing(env, m: int, action=None):
+    """(ms a step, device operations and busy ms of one profiled step) of
+    ``env`` alone at ``m`` envs on the card, one action held: ``action``, or
+    one of 4 drawn at random for each env."""
+    gc = torch.Generator(device="cuda").manual_seed(SEED)
+    _, s = env.reset(m, gc)
+    a = torch.randint(0, 4, (m,), generator=gc, device="cuda") if action is None else action
+    for _ in range(20):
+        _, s, _, _, _ = env.step(s, a, gc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        _, s, _, _, _ = env.step(s, a, gc)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 200
+    _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+    return ms, ops, busy
 
 
 # The rest of online PPO on Minecraft2d at the entry points' own widths:
@@ -2127,19 +2161,8 @@ def classic_env_checks(smi: str):
     from mmtrl_tpu_torch.envs.classic import CartPole
 
     for n in (1, 16):
-        env = CartPole(device="cuda")
-        gc = torch.Generator(device="cuda").manual_seed(SEED)
-        _, s = env.reset(n, gc)
-        a = torch.zeros(n, dtype=torch.long, device="cuda")
-        for _ in range(20):
-            _, s, _, _, _ = env.step(s, a, gc)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            _, s, _, _, _ = env.step(s, a, gc)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / 200
-        _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+        ms, ops, busy = env_step_timing(CartPole(device="cuda"), n,
+                                        torch.zeros(n, dtype=torch.long, device="cuda"))
         emit("classic_env", env="CartPole-v1", timed_envs=n, ms_per_step=ms,
              env_steps_per_s=n * 1e3 / ms, device_ops_per_step=ops, device_busy_ms=busy,
              card=smi)
@@ -2517,18 +2540,7 @@ def continuous_env_checks(smi: str):
         if wrapped:
             env = ppo_continuous_action.make_env(cli(ppo_continuous_action.Args, []),
                                                  torch.device("cuda"))
-        gc = torch.Generator(device="cuda").manual_seed(SEED)
-        _, s = env.reset(n, gc)
-        a = torch.zeros(n, 1, device="cuda")
-        for _ in range(20):
-            _, s, _, _, _ = env.step(s, a, gc)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            _, s, _, _, _ = env.step(s, a, gc)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / 200
-        _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+        ms, ops, busy = env_step_timing(env, n, torch.zeros(n, 1, device="cuda"))
         emit("continuous_env", env="Pendulum-v1" + (" wrapped" if wrapped else ""),
              timed_envs=n, ms_per_step=ms, env_steps_per_s=n * 1e3 / ms,
              device_ops_per_step=ops, device_busy_ms=busy, card=smi)
@@ -2781,19 +2793,52 @@ LEVELS_PPG_ARGS = ["--env-id", "procmaze", "--num-levels", "200", "--total-times
 LEVELS_MA_ARGS = ["--total-timesteps", "3072", "--save-interval", "3"]
 
 
-def taped_pair(cls):
-    """(cpu env, card env, tape): the card's resets take the CPU's draws,
-    which ``tape`` records; the two share one host-built level bank."""
-    tape = []
+def taped_pair(cls, hooks=(("sampler", "draw_reset"),)):
+    """(cpu env, card env, tapes): each draw hook of the card env (``sampler``,
+    or each ``(hook, draw method)`` of ``hooks``) takes the CPU's draws,
+    which ``tapes[hook]`` records; the two share one host-built level bank."""
+    tapes = {hook: [] for hook, _ in hooks}
     cpu = cls(device="cpu")
 
-    def record(n, generator):
-        out = cpu.draw_reset(n, generator)
-        tape.append(out)
-        return out
+    def recorder(draw, tape):
+        def record(n, generator):
+            out = draw(n, generator)
+            tape.append(out)
+            return out
+        return record
 
-    cpu.sampler = record
-    return cpu, cls(device="cuda", sampler=lambda n, generator: tape.pop(0)), tape
+    for hook, draw in hooks:
+        setattr(cpu, hook, recorder(getattr(cpu, draw), tapes[hook]))
+    card_env = cls(device="cuda", **{hook: (lambda tape: lambda n, generator: tape.pop(0))(tape)
+                                     for hook, tape in tapes.items()})
+    return cpu, card_env, tapes
+
+
+def step_card_vs_cpu(cpu, card_env, state, n: int, steps: int, g: torch.Generator):
+    """``steps`` steps of ``cpu`` from ``state`` and of ``card_env`` from its
+    copy on the card under the same random actions: (state, reward, done and
+    info all equal, the largest observation difference, the pre-reset
+    observation's included, done count, each boolean info summed)."""
+    card_state = to_device(state, "cuda")
+    equal, obs_err, dones, counts = True, 0.0, 0, {}
+    for _ in range(steps):
+        action = torch.randint(0, 4, (n,), generator=g)
+        obs, state, r, d, info = cpu.step(state, action, g)
+        c_obs, card_state, c_r, c_d, c_info = card_env.step(card_state, action.cuda())
+        ours = tensors_of(card_state)
+        equal &= all(torch.equal(ours[k].cpu(), v) for k, v in tensors_of(state).items())
+        equal &= torch.equal(c_r.cpu(), r) and torch.equal(c_d.cpu(), d)
+        equal &= set(c_info) == set(info) and all(
+            torch.equal(c_info[k].cpu(), v) for k, v in info.items() if k != "final_obs")
+        obs_err = max(obs_err, (c_obs.cpu() - obs).abs().max().item())
+        if "final_obs" in info:
+            obs_err = max(obs_err, (c_info["final_obs"].cpu() - info["final_obs"]).abs()
+                          .max().item())
+        dones += int(d.sum())
+        for k, v in info.items():
+            if v.dtype == torch.bool:
+                counts[k] = counts.get(k, 0) + int(v.sum())
+    return equal, obs_err, dones, counts
 
 
 def levels_env_checks(smi: str):
@@ -2810,46 +2855,20 @@ def levels_env_checks(smi: str):
     for name, cls in classes.items():
         n = LEVELS_ENV_SLOTS[name]
         t0 = time.perf_counter()
-        cpu, card_env, tape = taped_pair(cls)
+        cpu, card_env, tapes = taped_pair(cls)
         _, state = cpu.reset(n, g)
-        tape.clear()
-        card_state = to_device(state, "cuda")
-        equal, obs_err, dones, solved = True, 0.0, 0, 0
-        for _ in range(LEVELS_ENV_STEPS):
-            action = torch.randint(0, 4, (n,), generator=g)
-            obs, state, r, d, info = cpu.step(state, action, g)
-            c_obs, card_state, c_r, c_d, c_info = card_env.step(card_state, action.cuda())
-            ours = tensors_of(card_state)
-            equal &= all(torch.equal(ours[k].cpu(), v) for k, v in tensors_of(state).items())
-            equal &= torch.equal(c_r.cpu(), r) and torch.equal(c_d.cpu(), d)
-            equal &= set(c_info) == set(info) and all(
-                torch.equal(c_info[k].cpu(), v) for k, v in info.items() if k != "final_obs")
-            obs_err = max(obs_err, (c_obs.cpu() - obs).abs().max().item())
-            if "final_obs" in info:
-                obs_err = max(obs_err, (c_info["final_obs"].cpu() - info["final_obs"]).abs()
-                              .max().item())
-            dones += int(d.sum())
-            solved += int(info["solved"].sum()) if "solved" in info else 0
+        tapes["sampler"].clear()
+        equal, obs_err, dones, counts = step_card_vs_cpu(cpu, card_env, state, n,
+                                                         LEVELS_ENV_STEPS, g)
+        solved = counts.get("solved", 0)
         atol = 0.0 if name == "procmaze" else LEVELS_OBS_ATOL
-        ok = equal and obs_err <= atol and dones >= n and not tape
+        ok = equal and obs_err <= atol and dones >= n and not tapes["sampler"]
         emit("levels_env", env=name, slots=n, steps=LEVELS_ENV_STEPS, state_reward_done_equal=equal,
              obs_max_abs_err=obs_err, obs_atol=atol, dones=dones, solved=solved,
              seconds=time.perf_counter() - t0, card=smi, ok=ok)
         check(ok, f"{name} card vs CPU: equal {equal}, obs {obs_err}, dones {dones}")
         for m in LEVELS_TIMED[name]:
-            env = cls(device="cuda")
-            gc = torch.Generator(device="cuda").manual_seed(SEED)
-            _, s = env.reset(m, gc)
-            a = torch.randint(0, 4, (m,), generator=gc, device="cuda")
-            for _ in range(20):
-                _, s, _, _, _ = env.step(s, a, gc)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                _, s, _, _, _ = env.step(s, a, gc)
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / 200
-            _, _, ops, busy, _ = device_profile(lambda: env.step(s, a, gc))
+            ms, ops, busy = env_step_timing(cls(device="cuda"), m)
             emit("levels_env", env=name, timed_slots=m, ms_per_step=ms,
                  slot_steps_per_s=m * 1e3 / ms, device_ops_per_step=ops, device_busy_ms=busy,
                  card=smi)
@@ -3018,6 +3037,271 @@ def phase_levels(smi: str, tmp: str):
     restoring_flags(levels_checks, smi, tmp)
 
 
+# Doorpuzzle through the online PPO entry points, and the two-player Pong
+# through ppo_ma_pong's slot-aware host loop (ROADMAP A.7), at the entry
+# points' widths.  No kernel of the port lies on these paths (no attention).
+DOOR_ENVS = 64
+DOOR_ENV_STEPS = 300  # steps of the card-vs-CPU env run
+DOOR_TIMED = (16, 64)  # batches timed alone
+DOOR_HOOKS = (("sampler", "draw_reset"), ("slip_sampler", "draw_slip"))
+# Doorpuzzle's frame: each pixel of the render einsum has one nonzero term
+# (nearest resize), so both devices' sums are exact; held to 1e-6
+DOOR_OBS_ATOL = 1e-6
+# train --env-id doorpuzzle at the ppo phase's run (16 envs x 128 steps, 4 x
+# 4 minibatches, big towers, casl, input scale 255), a save after each update
+DOOR_UPDATE = 16 * 128
+DOOR_TRAIN_ARGS = PPO_RUN + ["--env-id", "doorpuzzle", "--save-interval", "1"]
+PONG_OBS_JOINT = 8  # joint envs (16 slots) of the card-vs-CPU observation check
+PONG_OBS_STEPS = 100
+PONG_TIMED_JOINT = 16  # ppo_ma_pong's default pool, timed alone
+PONG_TIMED_STEPS = 100
+# ppo_ma_pong at its defaults: 16 joint envs = 32 slots x 128 steps, 4 x 4
+# minibatches, small towers, casl, input scale 1
+PONG_UPDATE = 2 * 16 * 128  # slot-steps an update
+PONG_EVAL_STEPS = 256
+
+
+def door_env_checks(smi: str):
+    """(a) Doorpuzzle at 64 envs, card vs CPU for 300 steps under random
+    actions, the card's resets and slips fed the CPU's draws: state, reward,
+    done and info equal, obs within ``DOOR_OBS_ATOL``; (b) a step timed alone
+    at two batches."""
+    from mmtrl_tpu_torch.envs.doorpuzzle import Doorpuzzle
+
+    g = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    cpu, card_env, tapes = taped_pair(Doorpuzzle, DOOR_HOOKS)
+    _, state = cpu.reset(DOOR_ENVS, g)
+    tapes["sampler"].clear()
+    equal, obs_err, dones, counts = step_card_vs_cpu(cpu, card_env, state, DOOR_ENVS,
+                                                     DOOR_ENV_STEPS, g)
+    ok = (equal and obs_err <= DOOR_OBS_ATOL and dones >= DOOR_ENVS
+          and not any(tapes.values()))
+    emit("door_env", envs=DOOR_ENVS, steps=DOOR_ENV_STEPS, state_reward_done_equal=equal,
+         obs_max_abs_err=obs_err, obs_atol=DOOR_OBS_ATOL, dones=dones,
+         successes=counts.get("success", 0), seconds=time.perf_counter() - t0, card=smi, ok=ok)
+    check(ok, f"doorpuzzle card vs CPU: equal {equal}, obs {obs_err}, dones {dones}")
+    for m in DOOR_TIMED:
+        ms, ops, busy = env_step_timing(Doorpuzzle(device="cuda"), m)
+        emit("door_env", timed_envs=m, ms_per_step=ms, env_steps_per_s=m * 1e3 / ms,
+             device_ops_per_step=ops, device_busy_ms=busy, card=smi)
+
+
+def door_ppo_run(smi: str, tmp: str):
+    """(c) ``train --env-id doorpuzzle --attn-type casl`` at 16 x 128: one
+    update and a save, then the second resumed from it under the profiler
+    and saved; ``evaluate --env-id doorpuzzle`` (16 x 512, greedy) from that
+    checkpoint."""
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.envs.doorpuzzle import DoorpuzzleState
+    from mmtrl_tpu_torch.scripts import evaluate, train
+
+    save_dir = os.path.join(tmp, "door_ck")
+
+    def run(updates: int, *extra: str):
+        return train.main(cli(train.Args, DOOR_TRAIN_ARGS + [
+            "--total-timesteps", str(updates * DOOR_UPDATE), "--save-dir", save_dir, *extra]))
+
+    torch.cuda.reset_peak_memory_stats()
+    first = run(1)
+    out, wall, ops, busy, top = device_profile(
+        lambda: run(2, "--load-from", os.path.join(save_dir, first["run_name"])))
+    hist = first["history"] + out["history"]
+    for r in hist:
+        emit("door_train", update=r["update"], profiled=r["update"] == 2, wall_s=r["wall_s"],
+             sps=r["sps"], env_steps_per_s=DOOR_UPDATE / r["wall_s"],
+             episodic_return=r["episodic_return"], value_loss=r["losses/value_loss"],
+             max_memory_gb=r.get("max_memory_gb"), card=smi)
+    check([r["update"] for r in hist] == [1, 2] and out["global_step"] == 2 * DOOR_UPDATE
+          and all(math.isfinite(v) for r in hist for k, v in r.items()
+                  if k.startswith("losses/")), f"train doorpuzzle: {hist}")
+    check(isinstance(out["runner"].env_state, DoorpuzzleState)
+          and tuple(out["runner"].obs.shape) == (16, 2, 84, 84), "train doorpuzzle: not the env")
+    emit("door_train_profile", update=2, wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+    ckpt = os.path.join(save_dir, out["run_name"])
+    t0 = time.perf_counter()
+    res = evaluate.main(cli(evaluate.Args, ["--load-from", ckpt, "--env-id", "doorpuzzle",
+                                            "--script", "train", "--attn-type", "casl"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit("door_evaluate", wall_s=wall, env_steps_per_s=16 * 512 / wall, **res, card=smi)
+    check(res["eval/episodes"] >= 16 and math.isfinite(res["eval/episodic_return"]),
+          f"evaluate doorpuzzle: {res}")
+
+
+def pong_obs_checks(smi: str):
+    """(d) Two ``NativePong2P`` pools of 8 joint envs on one seed, stepped
+    by the same random slot actions for 100 steps: every host array equal,
+    the card's slot observations against the CPU's within ``ROM_OBS_ATOL``,
+    player 1's video plane player 0's mirrored; then a pool step at
+    ppo_ma_pong's 16 joint envs timed alone, emulator and observation
+    apart."""
+    import numpy as np
+
+    from mmtrl_tpu_torch.data.quant import dequant_audio_u8, quant_audio_u8
+    from mmtrl_tpu_torch.envs.pong_ma import NativePong2P
+
+    n = PONG_OBS_JOINT
+    env = NativePong2P(n, seed=SEED)
+    cpu_env = NativePong2P(n, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    try:
+        (f, a), (cf, ca) = env._host_reset(), cpu_env._host_reset()
+        equal = np.array_equal(f, cf) and np.array_equal(a, ca)
+        worst, mirrored, points, dones = 0.0, True, 0, 0
+        for _ in range(PONG_OBS_STEPS):
+            code = quant_audio_u8(a)
+            obs = env._obs(f, dequant_audio_u8(torch.from_numpy(code).cuda()))
+            ref = cpu_env._obs(cf, dequant_audio_u8(torch.from_numpy(quant_audio_u8(ca))))
+            worst = max(worst, (obs.cpu() - ref).abs().max().item())
+            mirrored &= torch.equal(obs[1::2, 0], obs[0::2, 0].flip(-1)) and torch.equal(
+                obs[1::2, 1:], obs[0::2, 1:])
+            actions = rng.integers(0, env.num_actions, 2 * n).astype(np.int32)
+            out, cout = env._host_step(actions), cpu_env._host_step(actions)
+            equal &= all(np.array_equal(x, y) for x, y in zip(out, cout))
+            (f, a), (cf, ca) = out[:2], cout[:2]
+            points += int(np.maximum(out[2], 0).sum())
+            dones += int(out[4].sum())
+    finally:
+        env.close()
+        cpu_env.close()
+    ok = equal and worst <= ROM_OBS_ATOL and mirrored
+    emit("pong_obs", joint_envs=n, slots=2 * n, steps=PONG_OBS_STEPS, host_arrays_equal=equal,
+         obs_max_abs_err=worst, obs_atol=ROM_OBS_ATOL, player1_mirrored=mirrored,
+         points=points, slot_dones=dones, card=smi, ok=ok)
+    check(ok, f"pong card vs CPU: host arrays {equal}, obs {worst}, mirrored {mirrored}")
+
+    env = NativePong2P(PONG_TIMED_JOINT, seed=SEED)
+    try:
+        f, a = env._host_reset()
+        host_s = obs_s = 0.0
+        for _ in range(PONG_TIMED_STEPS):
+            code = quant_audio_u8(a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obs = env._obs(f, dequant_audio_u8(torch.from_numpy(code).cuda()))
+            torch.cuda.synchronize()
+            obs_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            f, a = env._host_step(rng.integers(0, env.num_actions, env.num_slots)
+                                  .astype(np.int32))[:2]
+            host_s += time.perf_counter() - t0
+        check(tuple(obs.shape) == (env.num_slots, 3, 84, 84), f"pong obs {tuple(obs.shape)}")
+    finally:
+        env.close()
+    step_ms = 1e3 * (host_s + obs_s) / PONG_TIMED_STEPS
+    emit("pong_pool", joint_envs=PONG_TIMED_JOINT, slots=2 * PONG_TIMED_JOINT,
+         emulator_ms_per_pool_step=1e3 * host_s / PONG_TIMED_STEPS,
+         obs_ms_per_pool_step=1e3 * obs_s / PONG_TIMED_STEPS,
+         slot_steps_per_s=2 * PONG_TIMED_JOINT * 1e3 / step_ms, card=smi)
+
+
+def pong_ppo_run(smi: str, tmp: str):
+    """(e) ``ppo_ma_pong`` at its defaults: one update and a save, the
+    second resumed from it under the profiler and saved; a third resumed
+    from that save with a greedy evaluation of 256 pool steps, and the same
+    third resumed from the second's runner in memory (the host loop's
+    ``load_run`` handed its payload): bit for bit the same."""
+    import os
+
+    from mmtrl_tpu_torch.algos.ppo import hostloop
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import ppo_ma_pong
+
+    save_dir = os.path.join(tmp, "pong_ck")
+    evaluation = {}
+    plain_load, plain_eval = hostloop.load_run, hostloop.greedy_evaluation
+
+    def run(updates: int, *extra: str):
+        return ppo_ma_pong.main(cli(ppo_ma_pong.Args, [
+            "--total-timesteps", str(updates * PONG_UPDATE), "--save-dir", save_dir, *extra]))
+
+    def timed_evaluation(*a, **k):
+        t0 = time.perf_counter()
+        res = plain_eval(*a, **k)
+        torch.cuda.synchronize()
+        evaluation.update(wall_s=time.perf_counter() - t0, **res)
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    first = run(1, "--save-interval", "1")
+    second, wall, ops, busy, top = device_profile(lambda: run(
+        2, "--save-interval", "1", "--load-from", os.path.join(save_dir, first["run_name"])))
+    hostloop.greedy_evaluation = timed_evaluation
+    try:
+        resumed = run(3, "--load-from", os.path.join(save_dir, second["run_name"]),
+                      "--eval-steps", str(PONG_EVAL_STEPS))
+    finally:
+        hostloop.greedy_evaluation = plain_eval
+    hostloop.load_run = lambda path, map_location: second["runner"].payload()
+    try:
+        in_memory = run(3, "--load-from", "memory")
+    finally:
+        hostloop.load_run = plain_load
+
+    hist = first["history"] + second["history"] + resumed["history"]
+    for r in hist:
+        emit("pong_ppo", update=r["update"], profiled=r["update"] == 2, wall_s=r["wall_s"],
+             rollout_s=r["rollout_s"], update_s=r["update_s"], emulator_s=r["emulator_s"],
+             sps=r["sps"], slot_steps_per_s=PONG_UPDATE / r["wall_s"],
+             episodic_return=r["episodic_return"], value_loss=r["losses/value_loss"],
+             max_memory_gb=r.get("max_memory_gb"), card=smi)
+    check([r["update"] for r in hist] == [1, 2, 3] and resumed["global_step"] == 3 * PONG_UPDATE
+          and second["global_step"] == 2 * PONG_UPDATE
+          and all(math.isfinite(v) for r in hist for k, v in r.items()
+                  if k.startswith("losses/")), f"ppo_ma_pong: {hist}")
+    check(tuple(first["runner"].obs.shape) == (32, 3, 84, 84)
+          and first["runner"].model.audio_net.Conv_0.weight.shape[1] == 2,
+          "ppo_ma_pong: the runner is not the 32-slot, two-audio-channel one")
+    emit("pong_ppo_profile", update=2, wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6], card=smi)
+
+    a, b = resumed["runner"], in_memory["runner"]
+    same = (all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+            and all(torch.equal(x, y) for x, y in zip(a.opt_state.mu + a.opt_state.nu,
+                                                      b.opt_state.mu + b.opt_state.nu))
+            and torch.equal(a.generator.get_state(), b.generator.get_state())
+            and resumed["history"][0]["losses/value_loss"]
+            == in_memory["history"][0]["losses/value_loss"])
+    emit("pong_resume", update=3, resumed_equals_in_memory=same,
+         eval_steps=PONG_EVAL_STEPS, eval_slot_steps_per_s=2 * 16 * PONG_EVAL_STEPS
+         / evaluation.get("wall_s", math.inf), evaluation=evaluation, card=smi, ok=same)
+    check(same, "ppo_ma_pong: the resume from the save differs from the one from memory")
+    check("wall_s" in evaluation, "ppo_ma_pong: no greedy evaluation ran")
+
+
+def pong_door_checks(smi: str, tmp: str):
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    t0, seconds = time.perf_counter(), {}
+    for step, args in ((door_env_checks, (smi,)), (door_ppo_run, (smi, tmp)),
+                       (pong_obs_checks, (smi,)), (pong_ppo_run, (smi, tmp))):
+        t = time.perf_counter()
+        step(*args)
+        seconds[step.__name__] = time.perf_counter() - t
+    emit("pong_door", seconds=time.perf_counter() - t0, by_step=seconds, card=smi)
+
+
+def phase_pong_door(smi: str, tmp: str):
+    """Doorpuzzle and the two-player Pong: (a) Doorpuzzle card vs CPU under
+    the same draws, (b) timed alone; (c) ``train --env-id doorpuzzle`` at the
+    ppo phase's run (16 x 128) for two updates, the second resumed from a
+    save and profiled, and ``evaluate`` on its checkpoint; (d) the Pong slot
+    observation card vs CPU and a pool step timed; (e) ``ppo_ma_pong`` at
+    its defaults, two updates (the second resumed and profiled), a resumed
+    third equal to the same resume from memory, a greedy evaluation of 256
+    pool steps.  Cut: (c) runs at
+    the ppo phase's 16 envs and 4 x 4 minibatches, not train's reference
+    defaults (1 env, 1 x 1); (e)'s evaluation is 256 pool steps.  No kernel
+    of the port lies on these paths."""
+    restoring_flags(pong_door_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -3109,6 +3393,11 @@ def main() -> int:
         levels_launches = read_counts()
         check(not any(levels_launches.values()),
               f"the levels phase launched attention kernels: {levels_launches}")
+        reset_counts()
+        phase_pong_door(smi, tmp)
+        pong_door_launches = read_counts()
+        check(not any(pong_door_launches.values()),
+              f"the pong_door phase launched attention kernels: {pong_door_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -3133,6 +3422,8 @@ def main() -> int:
             "continuous_launches": continuous_launches[name],
             # procmaze (PPG's held-out split) and the two-agent Minecraft2d
             "levels_launches": levels_launches[name],
+            # Doorpuzzle and the two-player Pong
+            "pong_door_launches": pong_door_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

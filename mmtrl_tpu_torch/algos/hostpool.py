@@ -2,7 +2,9 @@
 ``algos/dt/hostloop.py``): the C++ core emulates on the host, each step's
 audio crosses to the device as its u8 code (``data/quant.py``), and the
 observation is made on the device from the dequantised code, as the JAX
-loops make it."""
+loops make it.  A two-player pool (``envs/pong_ma.py``) is stepped by agent
+slot: its actions, rewards, done flags and observations have one row a
+slot, as the JAX loop's ``cfg.num_envs`` rows are slots."""
 
 from __future__ import annotations
 
@@ -16,6 +18,12 @@ from mmtrl_tpu_torch.data.quant import dequant_audio_u8, quant_audio_u8
 from mmtrl_tpu_torch.envs.skeleton_native import NativeSkeletonPlus
 
 
+def slot_count(env) -> int:
+    """The rows a host loop steps: a multi-agent pool's ``num_slots``, else
+    its ``num_envs``."""
+    return getattr(env, "num_slots", env.num_envs)
+
+
 class HostPool:
     """A native pool from a fresh reset.  ``host_s`` sums the seconds spent
     in the emulator."""
@@ -24,7 +32,7 @@ class HostPool:
         self.env = env
         self.frames, audio = env._host_reset()
         self.audio_u8 = quant_audio_u8(audio)
-        self.done = np.zeros(env.num_envs, np.uint8)
+        self.done = np.zeros(slot_count(env), np.uint8)
         self.host_s = 0.0
 
     def obs(self) -> torch.Tensor:

@@ -33,7 +33,7 @@ import torch
 from mmtrl_tpu_torch.algos.ppo.core import PPOConfig, _maybe_clip, make_recurrent_ppo
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
-from mmtrl_tpu_torch.algos.hostpool import HostPool
+from mmtrl_tpu_torch.algos.hostpool import HostPool, slot_count
 
 
 class _SpecEnv:
@@ -57,8 +57,9 @@ def run_recurrent_ppo_hostloop(env, model, cfg: PPOConfig, args, device: torch.d
                                run_name: Optional[str] = None,
                                eval_steps: int = 0) -> Dict[str, Any]:
     """Trains ``model`` (a ``MultimodalRecurrentAgent`` on ``device``) on the
-    pool ``env`` (``_host_reset``, ``_host_step``, ``_obs`` on ``device``)
-    for ``cfg.num_updates`` updates, then, with ``eval_steps``, runs that
+    pool ``env`` (``_host_reset``, ``_host_step``, ``_obs`` on ``device``;
+    ``cfg.num_envs`` rows, a two-player pool's agent slots) for
+    ``cfg.num_updates`` updates, then, with ``eval_steps``, runs that
     many greedy pool steps.  Returns a summary with the final runner, one
     row per update (wall, rollout and update seconds, emulator seconds,
     SPS, metrics) and the evaluation's statistics."""
@@ -69,8 +70,9 @@ def run_recurrent_ppo_hostloop(env, model, cfg: PPOConfig, args, device: torch.d
     run_name = run_name or f"{env.name}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
     n, t_len = cfg.num_envs, cfg.num_steps
-    if env.num_envs != n:
-        raise ValueError(f"the pool has {env.num_envs} envs, the config {n}")
+    if slot_count(env) != n:
+        raise ValueError(f"the pool steps {slot_count(env)} rows (envs or agent slots), "
+                         f"the config {n}")
     parts = make_recurrent_ppo(_SpecEnv(env), model, cfg)
     rs = parts.init_runner(torch.Generator(device=device).manual_seed(args.seed))
     initial_update = 1
@@ -169,8 +171,9 @@ def greedy_evaluation(env, model, steps: int, device: torch.device) -> Dict[str,
     from the pool's auto-reset): the mean return and kills of the episodes
     that end, and their count."""
     pool = HostPool(env)
-    carry = model.initial_carry(env.num_envs, device)
-    ep_ret = np.zeros(env.num_envs, np.float64)
+    n = slot_count(env)
+    carry = model.initial_carry(n, device)
+    ep_ret = np.zeros(n, np.float64)
     rets, kills_done = [], []
     for _ in range(steps):
         logits, _, carry = model(pool.obs()[None], pool.done_tensor()[None], carry)

@@ -1,5 +1,5 @@
-"""Procedural Minecraft2d assets and the linearised render bank; port of the
-Minecraft2d part of ``mmtrl_tpu/envs/assets.py``, numpy only.
+"""Procedural assets and the linearised render banks of Minecraft2d and
+Doorpuzzle; port of ``mmtrl_tpu/envs/assets.py``, numpy only.
 
 The reference renders each step on the host: paste 20x20 tiles on a 104x104
 canvas, convert to gray, bicubic-resize to 84x84 with OpenCV, scale to
@@ -9,8 +9,9 @@ so it is precomputed once into a contribution bank
     C[cell, tile] = resize84(gray(canvas with `tile` alone at `cell`))
 
 and a frame is one einsum of the one-hot tile map against it.  OpenCV's
-INTER_CUBIC resize is rebuilt here as a numpy matrix with its arithmetic, so
-the port needs no OpenCV.  Tiles and wavs are the JAX package's procedural
+INTER_CUBIC resize (Minecraft2d) and INTER_NEAREST resize (Doorpuzzle) are
+rebuilt here as numpy matrices with its arithmetic, so the port needs no
+OpenCV.  Tiles and wavs are the JAX package's procedural
 stand-ins, bit for bit.
 """
 
@@ -34,6 +35,21 @@ CANVAS = GRID * CELL + 2 * BORDER  # 104
 # reference: Minecraft.py:301-320).
 T_STONE, T_AGENT, T_GOOD, T_BAD, T_GEM = range(5)
 N_TILES = 5
+
+# Doorpuzzle simple-render tile ids and gray values (reference:
+# Doorpuzzle.py:289-296; canvas background 125, boundary 0,
+# Doorpuzzle.py:384-390).
+DP_BG, DP_AGENT, DP_T1, DP_T2, DP_KEY1, DP_KEY2, DP_OBSTACLE = range(7)
+DP_N_TILES = 7
+DP_GRAY = {
+    DP_BG: 128.0,
+    DP_KEY1: 0.0,
+    DP_T1: 50.0,
+    DP_KEY2: 235.0,
+    DP_T2: 185.0,
+    DP_AGENT: 255.0,
+    DP_OBSTACLE: 100.0,
+}
 
 
 def _stone_texture(rng: np.random.RandomState) -> np.ndarray:
@@ -125,6 +141,49 @@ def minecraft_render_bank() -> np.ndarray:
             canvas[y0 : y0 + CELL, x0 : x0 + CELL] = tiles_gray[t]
             bank[p, t] = w @ canvas @ w.T
     return bank
+
+
+def nearest_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 0/1 weights of OpenCV's INTER_NEAREST resize
+    along one axis: output pixel ``i`` takes source pixel
+    ``min(floor(i * n_in / n_out), n_in - 1)`` (no half-pixel centres)."""
+    src = np.minimum(np.arange(n_out) * n_in // n_out, n_in - 1)
+    w = np.zeros((n_out, n_in), dtype=np.float32)
+    w[np.arange(n_out), src] = 1.0
+    return w
+
+
+@functools.lru_cache(maxsize=1)
+def doorpuzzle_render_bank() -> np.ndarray:
+    """(GRID*GRID, DP_N_TILES, IMG, IMG) float32 contribution bank of
+    Doorpuzzle's simple render, which resizes with INTER_NEAREST
+    (Doorpuzzle.py:377); the canvas base, ``doorpuzzle_base_frame``, is zero."""
+    w = nearest_resize_matrix(CANVAS, IMG)
+    bank = np.zeros((GRID * GRID, DP_N_TILES, IMG, IMG), dtype=np.float32)
+    for p in range(GRID * GRID):
+        r, c = divmod(p, GRID)
+        canvas = np.zeros((CANVAS, CANVAS), dtype=np.float32)
+        y0, x0 = r * CELL + BORDER, c * CELL + BORDER
+        for t in range(DP_N_TILES):
+            canvas[y0 : y0 + CELL, x0 : x0 + CELL] = DP_GRAY[t]
+            bank[p, t] = w @ canvas @ w.T
+    return bank
+
+
+@functools.lru_cache(maxsize=1)
+def doorpuzzle_base_frame() -> np.ndarray:
+    """(IMG, IMG) resized base canvas: 125, with the 2 px boundary and the
+    cell interiors (which the tiles overwrite) zeroed.  The 5 x 5 cells
+    fill the whole interior, so it is zero everywhere, and the port's frame
+    is the bank's sum alone where the reference adds it."""
+    canvas = np.full((CANVAS, CANVAS), 125.0, dtype=np.float32)
+    canvas[:BORDER, :] = 0.0
+    canvas[:, :BORDER] = 0.0
+    canvas[-BORDER:, :] = 0.0
+    canvas[:, -BORDER:] = 0.0
+    canvas[BORDER : CANVAS - BORDER, BORDER : CANVAS - BORDER] = 0.0  # the 5 x 5 cells
+    w = nearest_resize_matrix(CANVAS, IMG)
+    return w @ canvas @ w.T
 
 
 AUDIO_SR = 16000

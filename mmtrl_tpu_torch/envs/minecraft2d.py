@@ -28,7 +28,6 @@ from mmtrl_tpu_torch.envs import spaces
 from mmtrl_tpu_torch.envs.assets import (
     GRID,
     IMG,
-    N_TILES,
     T_AGENT,
     T_BAD,
     T_GEM,
@@ -67,8 +66,9 @@ class MinecraftState:
 
 def render_frame(bank: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
     """(n, 84, 84) gray frames in [-1, 1] of the (n, 25) tile maps ``tiles``:
-    one einsum of their one-hot against the render ``bank``."""
-    onehot = F.one_hot(tiles, N_TILES).float()
+    one einsum of their one-hot against the render ``bank`` (cells x tiles x
+    84 x 84)."""
+    onehot = F.one_hot(tiles, bank.shape[1]).float()
     # Clip to [0, 255] like the reference's uint8 saturation before the
     # affine rescale (bicubic can overshoot at tile edges).
     frame = torch.einsum("npt,ptyx->nyx", onehot, bank).clamp(0.0, 255.0)

@@ -46,14 +46,17 @@ CLASSIC_MODULES = [
     # procmaze and the two-agent Minecraft2d
     "envs/procmaze.py", "envs/minecraft2d_ma.py", "scripts/ppg.py",
     "scripts/ppo_ma_minecraft.py",
+    # Doorpuzzle and the two-player Pong
+    "envs/doorpuzzle.py", "envs/pong_ma.py", "envs/assets.py", "envs/registry.py",
+    "algos/hostpool.py", "algos/ppo/hostloop.py", "scripts/ppo_ma_pong.py",
 ]
 
 
 @pytest.mark.parametrize("name", CLASSIC_MODULES)
 def test_classic_modules_are_scanned(name):
     """The later slices' modules (classic control, discrete and continuous;
-    procmaze and the two-agent env) are among the scanned sources, so the
-    two tests above cover them."""
+    procmaze and the two-agent env; Doorpuzzle and the two-player Pong) are
+    among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 
 

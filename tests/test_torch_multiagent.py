@@ -27,8 +27,10 @@ from mmtrl_tpu_torch.convert import ppo_opt_state_from_flax
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.envs import make
 from mmtrl_tpu_torch.envs.assets import T_AGENT, T_GOOD, audio_planes
+from mmtrl_tpu_torch.envs.doorpuzzle import Doorpuzzle
 from mmtrl_tpu_torch.envs.minecraft2d import MAX_ITER
 from mmtrl_tpu_torch.envs.minecraft2d_ma import MAState, MultiAgentMinecraft2d
+from mmtrl_tpu_torch.envs.pong_ma import NativePong2P
 from mmtrl_tpu_torch.models.agents import CNNAgent
 from mmtrl_tpu_torch.scripts import ppo_ma_minecraft
 from test_torch_envs import OBS_ATOL
@@ -204,9 +206,11 @@ def test_reset_slot_layout_and_registry():
     assert all(len(set(row.tolist())) == 5 for row in locs)  # 5 distinct cells
     with pytest.raises(ValueError, match="whole joint envs"):
         env.reset(5)
-    for env_id in ("doorpuzzle", "pong_ma_native", "Doorpuzzle"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            make(env_id, device="cpu")
+    for env_id in ("doorpuzzle", "Doorpuzzle"):
+        assert type(make(env_id, device="cpu")) is Doorpuzzle
+    pong = make("pong_ma_native", num_envs=1, device="cpu")
+    assert type(pong) is NativePong2P
+    pong.close()
     with pytest.raises(KeyError):
         make("no_such_env")
 

@@ -241,6 +241,9 @@ def _jax_script(name):
     ("c51_rom", ["--n-atoms", "21", "--v-min", "-5", "--learning-starts", "100"]),
     ("dt_rom", ["--env-id", "brick_native", "--moe-experts", "4", "--moe-dispatch", "gather",
                 "--policy-kind", "c51", "--rtg-clip", "5", "--policy-greedy"]),
+    ("ppo_ma_pong", ["--num-envs", "4", "--repeat-action-probability", "0.25",
+                     "--eval-steps", "256", "--episode-steps", "300"]),
+    ("ppo_ma_pong", []),
 ])
 def test_cli_matches_the_jax_cli(name, argv, monkeypatch):
     monkeypatch.setenv("MMTRL_NO_COMPILE_CACHE", "1")  # the JAX cli's own cache

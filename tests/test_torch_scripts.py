@@ -22,6 +22,7 @@ from mmtrl_tpu_torch.core import checkpoint
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs import make
+from mmtrl_tpu_torch.envs.doorpuzzle import Doorpuzzle
 from mmtrl_tpu_torch.scripts import (
     dqn_rom,
     dt_minecraft,
@@ -32,6 +33,7 @@ from mmtrl_tpu_torch.scripts import (
     minecraft_lstm_google,
     ppg,
     ppo_rnd,
+    skeleton_plus_ppo,
     train,
 )
 
@@ -196,7 +198,7 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 
 @pytest.mark.parametrize("module,argv,item", [
-    (ppg, ["--env-id", "doorpuzzle"], "A.7"),
+    (skeleton_plus_ppo, ["--backend", "native"], "A.7"),
     (minecraft_cnn, ["--capture-video"], "A.9"),
     (dqn_rom, ["--track"], "A.9"),
     (evaluate, ["--env-id", "skeleton_plus_native"], "A.7"),
@@ -352,16 +354,15 @@ def test_registry_names_what_it_has():
     assert make("Minecraft2d", device="cpu").num_actions == 4
     assert make("CartPole-v1", device="cpu").num_actions == 2
     with pytest.raises(KeyError, match="available: \\['acrobot', 'acrobot-v1', 'brick_native', "
-                                      "'cartpole', 'cartpole-v1', 'minecraft', 'minecraft2d', "
-                                      "'minecraft_ma', 'mountaincar', 'mountaincar-v0', "
-                                      "'multiagentminecraft2d', 'pendulum', 'pendulum-v1', "
-                                      "'procmaze', 'rally_native', "
-                                      "'skeleton_plus', 'skeleton_plus_native', "
+                                      "'cartpole', 'cartpole-v1', 'doorpuzzle', 'minecraft', "
+                                      "'minecraft2d', 'minecraft_ma', 'mountaincar', "
+                                      "'mountaincar-v0', 'multiagentminecraft2d', 'pendulum', "
+                                      "'pendulum-v1', 'pong_ma_native', 'procmaze', "
+                                      "'rally_native', 'skeleton_plus', 'skeleton_plus_native', "
                                       "'skeletonplus'\\]"):
         make("no_such_env", device="cpu")
-    # JAX's ids that the port lacks name their item
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        make("doorpuzzle", device="cpu")
+    # the JAX registry's Doorpuzzle id (pong_ma_native: test_torch_pong_ma.py)
+    assert type(make("doorpuzzle", device="cpu")) is Doorpuzzle
 
 
 def test_python_m_entry_imports_no_jax(in_tmp):
