@@ -57,9 +57,10 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 checkpoints; and in a child process an RND ``--load-from``
                 resume equal to update 4 in memory bit for bit, then one
                 profiled update of each path.
-9. rom       -- the cartridge path: the native 2600 library built with g++
-                (beside nvcc, in phase 1); ``rally_native`` at 32 envs for 300
-                pool steps, ``_obs`` on the card against the CPU; ``rally_ppo``
+9. rom       -- the cartridge path: the native 2600 library and the C++
+                gridworld engine built with g++ (beside nvcc, in phase 1);
+                ``rally_native`` at 32 envs for 300 pool steps, ``_obs`` on
+                the card against the CPU; ``rally_ppo``
                 at its defaults (32 envs x 128 steps, 4 x 4 minibatches, big
                 towers, casl) for two updates with a save and one resumed
                 update with a greedy evaluation; ``dt_rom --policy-from`` that
@@ -146,7 +147,22 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 resume from the runner in memory, and a greedy evaluation of
                 256 pool steps.  No kernel lies on these paths: zero
                 launches.
-16. timing   -- each kernel, its plain version and the PyTorch call that
+16. native_pools -- the native cartridge pools inside the fused loops and
+                the two raw bridges: the pool's ``reset``/``step`` card vs
+                CPU on RALLY (8 envs, 200 steps) and BRICK with sticky
+                actions (100 steps; counter, reward, done, kills and life
+                equal, obs within 2e-5); ``skeleton_plus_ppo --backend
+                native --env-id rally_native`` through ``main`` at its
+                defaults, two updates and a save, the third resumed from the
+                saved observation and profiled (rollout, update and emulator
+                apart); ``evaluate_policy`` greedy on a RALLY pool, 8 x 512,
+                from that checkpoint, and ``evaluate_actions`` taking the
+                pool's size; ``NativeMinecraft2d`` card vs CPU at 16 envs for
+                300 steps, equal to the device env's render, timed at 16 and
+                64; two ``AtariPool``s on RALLY's ROM equal, one window's
+                MFCC card vs CPU.  No kernel lies on these paths: zero
+                launches.
+17. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -1529,20 +1545,24 @@ ROM_TIMED_STEPS = 10
 
 
 def native_build_in_background():
-    """A started thread that builds the native 2600 library (g++, some 10 s)
-    while nvcc builds the kernels; ``.error`` holds what it raised."""
+    """A started thread that builds the native 2600 library and the C++
+    gridworld engine (g++, some 10 s and 2 s) while nvcc builds the kernels;
+    ``.error`` holds what it raised."""
     import threading
 
-    from mmtrl_tpu_torch.envs.skeleton_native import build_native
+    from pathlib import Path
+
+    from mmtrl_tpu_torch.envs import native_bridge, skeleton_native
 
     class Build(threading.Thread):
         error = None
 
         def run(self):
             try:
-                t0 = time.perf_counter()
-                path = build_native()
-                emit("build", library=str(path.name), seconds=time.perf_counter() - t0)
+                for build in (skeleton_native.build_native, native_bridge.build_native):
+                    t0 = time.perf_counter()
+                    path = Path(build())
+                    emit("build", library=str(path.name), seconds=time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001  re-raised by the caller's check
                 self.error = e
 
@@ -3302,6 +3322,387 @@ def phase_pong_door(smi: str, tmp: str):
     restoring_flags(pong_door_checks, smi, tmp)
 
 
+# The native cartridge pools inside the fused PPO loop and the evaluation,
+# and the two raw bridges (ROADMAP A.7): at the entry points' widths.  No
+# kernel of the port lies on these paths (no attention).
+POOL_ENVS = 8  # skeleton_plus_ppo's default pool
+POOL_RUNS = {"rally_native": (200, 0.0), "brick_native": (100, 0.25)}  # steps, sticky
+# The observation, card against CPU: tests/test_torch_native.py's OBS_ATOL
+# (the MFCC planes' float32 FFT, log and projections in other orders, each
+# plane divided by its own range; the rom phase read 1.67e-6)
+POOL_OBS_ATOL = 2e-5
+POOL_OBS_EVERY = 10  # steps between two observations made on the CPU as well
+# skeleton_plus_ppo --backend native --env-id rally_native at its defaults:
+# 8 envs x 128 steps, 4 x 4 minibatches, big towers, casl, input scale 1
+POOL_NUM_STEPS = 128
+POOL_UPDATE = POOL_ENVS * POOL_NUM_STEPS
+POOL_PPO_ARGS = ["--backend", "native", "--env-id", "rally_native"]
+POOL_EVAL_STEPS = 512
+POOL_ACTIONS_STEPS = 64  # evaluate_actions, asked for 2 x the pool's envs
+GRID_ENVS, GRID_STEPS = 16, 300
+GRID_TIMED = (16, 64)
+# The gridworld's render, card against CPU: one float32 einsum of a one-hot
+# against the bank, summed in other orders (tests/test_native_bridge.py's
+# 1e-5); against the device env's render on the same card: equal
+GRID_OBS_ATOL = 1e-5
+ATARI_MACHINES, ATARI_STEPS = 4, 60
+# One stereo window's MFCC, card against CPU: cuFFT and pocketfft in other
+# orders, the float32 cepstra up to about 40 (tests/test_torch_native.py's
+# MFCC tolerance)
+ATARI_MFCC_ATOL = 1e-4
+
+
+def pool_surface_checks(smi: str):
+    """(a) ``rally_native`` at 8 envs for 200 steps and ``brick_native``
+    with sticky actions 0.25 for 100, each a pool on the card stepped
+    through ``reset``/``step`` and one on the CPU from one seed stepped by
+    its host arrays under the same random actions: the card's counter,
+    reward, done, kills and life equal to the CPU pool's, and its
+    observation within ``POOL_OBS_ATOL`` of the CPU's ``_obs`` at the reset
+    and every ``POOL_OBS_EVERY``-th step; the card's step timed."""
+    import numpy as np
+
+    from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
+
+    rng = np.random.default_rng(SEED)
+    for env_id, (steps, sticky) in POOL_RUNS.items():
+        kw = dict(num_envs=POOL_ENVS, seed=SEED, repeat_action_probability=sticky)
+        card_env, cpu_env = make_native_env(env_id, **kw), make_native_env(env_id, device="cpu",
+                                                                           **kw)
+        try:
+            o, s = card_env.reset(POOL_ENVS)
+            frames, audio = cpu_env._host_reset()
+            on_card = o.is_cuda and s.is_cuda
+            equal = torch.equal(s.cpu(), torch.zeros(POOL_ENVS, dtype=torch.int32))
+            worst, checked = (o.cpu() - cpu_env._obs(frames, audio)).abs().max().item(), 1
+            step_s, dones, reward = 0.0, 0, 0.0
+            for t in range(1, steps + 1):
+                a = rng.integers(0, card_env.num_actions, POOL_ENVS)
+                a_card = torch.from_numpy(a).cuda()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o, s, r, d, info = card_env.step(s, a_card)
+                torch.cuda.synchronize()
+                step_s += time.perf_counter() - t0
+                frames, audio, kd, ld, done, win, kills, life = cpu_env._host_step(a)
+                cr = torch.from_numpy(cpu_env._reward(kd, ld, win))
+                on_card &= all(x.is_cuda for x in (o, s, r, d, *info.values()))
+                equal &= (torch.equal(s.cpu(), torch.full((POOL_ENVS,), t, dtype=torch.int32))
+                          and r.dtype == torch.float32 and torch.equal(r.cpu(), cr)
+                          and torch.equal(d.cpu(), torch.from_numpy(done.astype(bool)))
+                          and set(info) == {"kills", "life"}
+                          and torch.equal(info["kills"].cpu(), torch.from_numpy(kills))
+                          and torch.equal(info["life"].cpu(), torch.from_numpy(life)))
+                if t % POOL_OBS_EVERY == 0:
+                    worst = max(worst, (o.cpu() - cpu_env._obs(frames, audio)).abs().max().item())
+                    checked += 1
+                dones, reward = dones + int(done.sum()), reward + float(cr.sum())
+        finally:
+            card_env.close()
+            cpu_env.close()
+        ok = on_card and equal and worst <= POOL_OBS_ATOL
+        emit("pool_surface", env=env_id, envs=POOL_ENVS, steps=steps, sticky=sticky,
+             state_reward_done_info_equal=equal, obs_max_abs_err=worst, obs_atol=POOL_OBS_ATOL,
+             obs_checked_steps=checked, on_card=on_card, ms_per_pool_step=1e3 * step_s / steps,
+             env_steps_per_s=POOL_ENVS * steps / step_s, dones=dones, reward_sum=reward,
+             card=smi, ok=ok)
+        check(ok, f"{env_id} pool card vs CPU: on card {on_card}, equal {equal}, obs {worst}")
+
+
+def pool_ppo_run(smi: str, tmp: str) -> str:
+    """(b) ``skeleton_plus_ppo --backend native --env-id rally_native`` at
+    its defaults through ``main``: two updates and a save, each
+    ``train_iteration``'s rollout and update timed apart, and the pool's
+    emulator inside the rollout; then the third resumed from the save
+    through the plain ``main`` under the profiler.  The resumed run
+    continues the saved counter, and ``load_payload`` puts the saved
+    observation over the freshly reset pool (ROADMAP C.21).  Returns the
+    checkpoint."""
+    import dataclasses as dc
+    import os
+
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import skeleton_plus_ppo
+
+    save_dir = os.path.join(tmp, "pool_ck")
+    plain = skeleton_plus_ppo.make_recurrent_ppo
+    splits = []
+
+    def timed_ppo(env, model, cfg):
+        algo = plain(env, model, cfg)
+        host_step, emulator = env._host_step, []
+
+        def timed_host_step(actions):
+            t0 = time.perf_counter()
+            out = host_step(actions)
+            emulator.append(time.perf_counter() - t0)
+            return out
+
+        env._host_step = timed_host_step
+
+        def train_iteration(rs):
+            emulator.clear()
+            t0 = time.perf_counter()
+            initial_carry = rs.carry
+            rs, data = algo.rollout(rs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = algo.update_from_rollout(rs, initial_carry, data)
+            torch.cuda.synchronize()
+            splits.append(dict(rollout_s=t1 - t0, update_s=time.perf_counter() - t1,
+                               emulator_s=sum(emulator), pool_steps=len(emulator)))
+            return out
+
+        return dc.replace(algo, train_iteration=train_iteration)
+
+    def run(updates: int, *extra: str):
+        return skeleton_plus_ppo.main(cli(skeleton_plus_ppo.Args, POOL_PPO_ARGS + [
+            "--total-timesteps", str(updates * POOL_UPDATE), "--save-dir", save_dir, *extra]))
+
+    torch.cuda.reset_peak_memory_stats()
+    skeleton_plus_ppo.make_recurrent_ppo = timed_ppo
+    try:
+        t0 = time.perf_counter()
+        first = run(2, "--save-interval", "2")
+        first_s = time.perf_counter() - t0
+    finally:
+        skeleton_plus_ppo.make_recurrent_ppo = plain
+    ckpt = os.path.join(save_dir, first["run_name"])
+    t0 = time.perf_counter()
+    resumed, wall, ops, busy, top = device_profile(lambda: run(3, "--load-from", ckpt))
+    profiled_s = time.perf_counter() - t0
+    for r, split in zip(first["history"], splits):
+        emit("pool_ppo", update=r["update"], profiled=False, wall_s=r["wall_s"],
+             **split, emulator_share_of_rollout=split["emulator_s"] / split["rollout_s"],
+             action_syncs=split["pool_steps"], sps=r["sps"],
+             env_steps_per_s=POOL_UPDATE / r["wall_s"], episodic_return=r["episodic_return"],
+             value_loss=r["losses/value_loss"], max_memory_gb=r.get("max_memory_gb"), card=smi)
+    hist = first["history"] + resumed["history"]
+    r = resumed["history"][-1]
+    emit("pool_ppo", update=r["update"], profiled=True, wall_s=r["wall_s"], sps=r["sps"],
+         env_steps_per_s=POOL_UPDATE / r["wall_s"], episodic_return=r["episodic_return"],
+         value_loss=r["losses/value_loss"], max_memory_gb=r.get("max_memory_gb"), card=smi)
+    runner, saved = resumed["runner"], load_run(ckpt, map_location="cuda")
+    check([r["update"] for r in hist] == [1, 2, 3] and resumed["initial_update"] == 3
+          and len(splits) == 2 and all(sp["pool_steps"] == POOL_NUM_STEPS for sp in splits)
+          and all(math.isfinite(v) for r in hist for k, v in r.items() if k.startswith("losses/")),
+          f"skeleton_plus_ppo --backend native: {hist} {splits}")
+    check(runner.obs.is_cuda and tuple(runner.obs.shape) == (POOL_ENVS, 3, 84, 84)
+          and runner.env_state.is_cuda and runner.env_state.dtype == torch.int32
+          and all(p.is_cuda for p in runner.model.parameters()),
+          "skeleton_plus_ppo --backend native: the runner is not the card's pool runner")
+    # C.21: the counter goes on from the save's 256 (a fresh pool's would
+    # read 128 after the update), and the restored observation is the saved one
+    restored = runner.load_payload(saved)
+    c21 = (int(runner.env_state[0]) == 3 * POOL_NUM_STEPS
+           and torch.equal(restored.obs, saved["obs"])
+           and torch.equal(restored.env_state, saved["env_state"]))
+    emit("pool_ppo_profile", update=3, wall_s=wall, device_ops=ops, device_busy_ms=busy,
+         idle_share=1 - busy / (1e3 * wall), top_kernels=top[:6],
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         resumed_from_the_saved_state=c21, first_main_s=first_s, profiled_call_s=profiled_s,
+         card=smi)
+    check(c21, "the resumed run did not go on from the saved observation and counter")
+    return ckpt
+
+
+def pool_evaluation(smi: str, ckpt: str):
+    """(c) ``evaluate_policy`` greedy on a ``rally_native`` pool of 8 envs x
+    512 steps with the checkpoint's agent; ``evaluate_actions`` asked for
+    16 envs on that pool takes its 8.  (``evaluate --env-id
+    skeleton_plus_native`` needs SkelPlus.bin, not in the repository: not
+    run.)"""
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.envs.homebrew_native import make_native_env
+    from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+    from mmtrl_tpu_torch.utils.evaluate import evaluate_actions, evaluate_policy
+
+    env = make_native_env("rally_native", num_envs=POOL_ENVS, seed=SEED + 1)
+    try:
+        model = MultimodalRecurrentAgent(num_actions=6, conv_type="big", attn_type="casl",
+                                         fusion_type="sum", input_scale=1.0, audio_channels=2,
+                                         device="cuda")
+        model.load_state_dict(load_run(ckpt, map_location="cuda")["model"])
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_policy(env, model, g, num_envs=POOL_ENVS, num_steps=POOL_EVAL_STEPS,
+                              recurrent=True, initial_carry=model.initial_carry(POOL_ENVS, "cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = {k: float(v) for k, v in res.items()}
+        emit("pool_evaluate", envs=POOL_ENVS, steps=POOL_EVAL_STEPS, wall_s=wall,
+             env_steps_per_s=POOL_ENVS * POOL_EVAL_STEPS / wall, **res, card=smi)
+        check(res["eval/episodes"] >= 1 and math.isfinite(res["eval/episodic_return"]),
+              f"evaluate_policy on the pool: {res}")
+
+        resets, plain_reset = [], env.reset
+
+        def recording_reset(num_envs, generator=None):
+            resets.append(num_envs)
+            return plain_reset(num_envs, generator)
+
+        env.reset = recording_reset
+        w = torch.randn(6, 84 * 84, generator=g, device="cuda")
+        out = evaluate_actions(env, lambda obs: (obs[:, 0].reshape(-1, 84 * 84) @ w.T).argmax(-1),
+                               g, num_envs=2 * POOL_ENVS, num_steps=POOL_ACTIONS_STEPS)
+        out = {k: float(v) for k, v in out.items()}
+        emit("pool_evaluate_actions", asked_envs=2 * POOL_ENVS, reset_envs=resets,
+             steps=POOL_ACTIONS_STEPS, **out, card=smi, ok=resets == [POOL_ENVS])
+        check(resets == [POOL_ENVS] and math.isfinite(out["eval/episodic_length"]),
+              f"evaluate_actions on a pool of {POOL_ENVS}: reset {resets}, {out}")
+    finally:
+        env.close()
+
+
+def gridworld_checks(smi: str):
+    """(d) ``NativeMinecraft2d`` at 16 envs for 300 steps, a pool on the card
+    and one on the CPU from one seed under the same random actions (every
+    other step through the public ``step``): tiles, audio index, reward and
+    done equal, the observation within ``GRID_OBS_ATOL``, and each card frame
+    and audio plane equal to the device ``Minecraft2d``'s render of the same
+    tiles on the card; then a step timed alone at 16 and 64 envs."""
+    import numpy as np
+
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d, render_frame
+    from mmtrl_tpu_torch.envs.native_bridge import NativeMinecraft2d
+
+    card_env = NativeMinecraft2d(GRID_ENVS, seed=SEED)
+    cpu_env = NativeMinecraft2d(GRID_ENVS, seed=SEED, device="cpu")
+    device_env = Minecraft2d(device="cuda")
+    rng = np.random.default_rng(SEED)
+    try:
+        (t, a), (ct, ca) = card_env._host_reset(), cpu_env._host_reset()
+        equal = np.array_equal(t, ct) and np.array_equal(a, ca)
+        obs = card_env._render(t, a)
+        worst, render_equal, dones = 0.0, True, 0
+        for step in range(GRID_STEPS):
+            ref = cpu_env._render(ct, ca)
+            worst = max(worst, (obs.cpu() - ref).abs().max().item())
+            tiles = torch.from_numpy(ct).cuda().long()
+            render_equal &= (obs.is_cuda and torch.equal(obs[:, 0], render_frame(device_env._bank, tiles))
+                             and torch.equal(obs[:, 1], device_env._audio[torch.from_numpy(ca).cuda().long()]))
+            actions = rng.integers(0, 4, GRID_ENVS).astype(np.int32)
+            cout = cpu_env._host_step(actions)
+            if step % 2:
+                obs, r, d = card_env.step(torch.from_numpy(actions).cuda())
+                equal &= (r.is_cuda and torch.equal(r.cpu(), torch.from_numpy(cout[2]))
+                          and torch.equal(d.cpu(), torch.from_numpy(cout[3].astype(bool))))
+            else:
+                out = card_env._host_step(actions)
+                equal &= all(np.array_equal(x, y) for x, y in zip(out, cout))
+                obs = card_env._render(*out[:2])
+            ct, ca = cout[:2]
+            dones += int(cout[3].sum())
+    finally:
+        card_env.close()
+        cpu_env.close()
+    ok = equal and render_equal and worst <= GRID_OBS_ATOL and dones >= GRID_ENVS
+    emit("gridworld", envs=GRID_ENVS, steps=GRID_STEPS, host_arrays_equal=equal,
+         obs_max_abs_err=worst, obs_atol=GRID_OBS_ATOL, equal_to_device_render=render_equal,
+         dones=dones, card=smi, ok=ok)
+    check(ok, f"NativeMinecraft2d card vs CPU: equal {equal}, render {render_equal}, "
+              f"obs {worst}, dones {dones}")
+    for m in GRID_TIMED:
+        env = NativeMinecraft2d(m, seed=SEED)
+        try:
+            env.reset()
+            act = torch.randint(0, 4, (m,), device="cuda")
+            for _ in range(20):
+                env.step(act)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                env.step(act)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 200
+        finally:
+            env.close()
+        emit("gridworld", timed_envs=m, ms_per_step=ms, env_steps_per_s=m * 1e3 / ms, card=smi)
+
+
+def atari_checks(smi: str):
+    """(e) Two ``AtariPool``s of 4 machines on ``native/homebrew/rally.bin``
+    from one seed, 60 steps of joystick play with the console's reset
+    pressed: frames, audio and RAM equal; then one stereo window through
+    ``mfcc_tensor`` on the card and on the CPU."""
+    import numpy as np
+
+    from mmtrl_tpu_torch.envs.atari_bridge import RESET_SWITCH, RIGHT, UP, AtariPool
+    from mmtrl_tpu_torch.envs.homebrew_native import RALLY_ROM
+    from mmtrl_tpu_torch.ops.mfcc import SKELETON_PLUS_PARAMS, mfcc_tensor
+
+    pools = [AtariPool(RALLY_ROM, ATARI_MACHINES, seed=SEED) for _ in range(2)]
+    plan = [RESET_SWITCH if 20 <= i < 23 else UP if (i // 5) % 2 else RIGHT
+            for i in range(ATARI_STEPS)]
+    try:
+        equal, heard, step_s = True, 0.0, 0.0
+        for act in plan:
+            actions = np.full(ATARI_MACHINES, act, np.uint8)
+            t0 = time.perf_counter()
+            frames, audio = pools[0].step(actions)
+            step_s += time.perf_counter() - t0
+            frames2, audio2 = pools[1].step(actions)
+            equal &= (np.array_equal(frames, frames2) and np.array_equal(audio, audio2)
+                      and np.array_equal(pools[0].ram(), pools[1].ram()))
+            heard += float(audio.sum())
+    finally:
+        for p in pools:
+            p.close()
+    window = torch.from_numpy(audio[0] * 32000.0)  # (2, 524): the stereo window
+    card_feats = mfcc_tensor(window.cuda(), SKELETON_PLUS_PARAMS)
+    feats = mfcc_tensor(window, SKELETON_PLUS_PARAMS)
+    err = (card_feats.cpu() - feats).abs().max().item()
+    ok = (equal and heard > 0 and card_feats.is_cuda and feats.shape[-1] == 13
+          and bool(torch.isfinite(card_feats).all()) and err <= ATARI_MFCC_ATOL)
+    emit("atari_pool", rom="rally.bin", machines=ATARI_MACHINES, steps=ATARI_STEPS,
+         frames_audio_ram_equal=equal, audio_sum=heard, ms_per_step=1e3 * step_s / ATARI_STEPS,
+         mfcc_shape=list(card_feats.shape), mfcc_max_abs_err=err, mfcc_atol=ATARI_MFCC_ATOL,
+         card=smi, ok=ok)
+    check(ok, f"AtariPool: equal {equal}, heard {heard}, MFCC card vs CPU {err}")
+
+
+def native_pools_checks(smi: str, tmp: str):
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    t0, seconds = time.perf_counter(), {}
+
+    def timed(step, *args):
+        t = time.perf_counter()
+        out = step(*args)
+        seconds[step.__name__] = time.perf_counter() - t
+        return out
+
+    timed(pool_surface_checks, smi)
+    ckpt = timed(pool_ppo_run, smi, tmp)
+    timed(pool_evaluation, smi, ckpt)
+    timed(gridworld_checks, smi)
+    timed(atari_checks, smi)
+    emit("native_pools", seconds=time.perf_counter() - t0, by_step=seconds, card=smi)
+
+
+def phase_native_pools(smi: str, tmp: str):
+    """The native cartridge pools inside the fused loops, and the two raw
+    bridges: (a) the pool's ``reset``/``step`` card vs CPU on RALLY (8 envs,
+    200 steps) and BRICK with sticky actions (100 steps); (b)
+    ``skeleton_plus_ppo --backend native --env-id rally_native`` through
+    ``main`` at its defaults (8 envs x 128 steps, 4 x 4 minibatches, big
+    towers, casl), two updates and a save with rollout, update and
+    emulator timed apart, the third resumed from it (from the saved
+    observation, ROADMAP C.21) and profiled; (c) ``evaluate_policy`` greedy on a
+    RALLY pool of 8 envs x 512 steps from that checkpoint, and
+    ``evaluate_actions`` asked for 16 envs on the pool of 8; (d)
+    ``NativeMinecraft2d`` card vs CPU at 16 envs for 300 steps and against
+    the device env's render, timed at 16 and 64 envs; (e) ``AtariPool`` on
+    RALLY's ROM, two pools of one seed equal, one window's MFCC card vs
+    CPU.  Not run: ``evaluate --env-id skeleton_plus_native``, which needs
+    SkelPlus.bin (not in the repository).  Nothing is cut: the issue's
+    sizes as they are.  No kernel of the port lies on these paths."""
+    restoring_flags(native_pools_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -3398,6 +3799,11 @@ def main() -> int:
         pong_door_launches = read_counts()
         check(not any(pong_door_launches.values()),
               f"the pong_door phase launched attention kernels: {pong_door_launches}")
+        reset_counts()
+        phase_native_pools(smi, tmp)
+        native_pools_launches = read_counts()
+        check(not any(native_pools_launches.values()),
+              f"the native_pools phase launched attention kernels: {native_pools_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -3424,6 +3830,8 @@ def main() -> int:
             "levels_launches": levels_launches[name],
             # Doorpuzzle and the two-player Pong
             "pong_door_launches": pong_door_launches[name],
+            # the native pools in the fused loops, the two raw bridges
+            "native_pools_launches": native_pools_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

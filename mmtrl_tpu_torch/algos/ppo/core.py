@@ -530,7 +530,9 @@ def make_recurrent_ppo(env: Environment, model: nn.Module, cfg: PPOConfig) -> Re
     carry)``; minibatching is over env indices so each minibatch replays
     full sequences from the rollout's initial carry (reference:
     src/train.py:200-218).  ``init_runner`` takes ``model``; the other
-    functions use the runner's own model."""
+    functions use the runner's own model.  ``env`` may be a native pool
+    (``envs/skeleton_native.py``): its ``step`` copies each action to the
+    host, one sync a rollout step, as JAX's ordered ``io_callback`` does."""
     if cfg.num_envs % cfg.num_minibatches:
         raise ValueError("recurrent PPO needs num_envs divisible by num_minibatches "
                          "(sequence-preserving minibatches)")

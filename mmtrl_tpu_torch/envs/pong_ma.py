@@ -76,6 +76,18 @@ class NativePong2P(NativeHomebrew):
         flipped = torch.cat([base[:, :1].flip(-1), base[:, 1:]], dim=1)
         return torch.stack([base, flipped], dim=1).reshape((-1,) + base.shape[1:])
 
+    def step(self, state, action, generator=None):
+        """Raises, as JAX's inherited ``v_step`` does: that one declares the
+        joint envs' (n,) shapes for the per-slot (2n,) reward and done
+        arrays of ``_host_step``, and ``io_callback`` rejects them ("Incorrect
+        output shape").  ``reset`` is the inherited one and runs, as JAX's
+        ``v_reset`` does: (2n, 3, 84, 84) slot observations, an (n,)
+        counter.  The slot pool trains through the host loop
+        (``scripts/ppo_ma_pong.py``)."""
+        raise RuntimeError(f"{self.name}: the batched step has no slot surface: the "
+                           f"per-slot arrays are ({self.num_slots},), the joint envs "
+                           f"({self.num_joint},); step the pool through the host loop")
+
     @property
     def name(self) -> str:
         return "pong_ma_native"

@@ -14,11 +14,18 @@ components) on the host; the observation is made on the env's device:
          84 x 84 planes, each min-max normalised to [-1, 1].
 
 Observation (3, 84, 84) = [frame, MFCC-L, MFCC-R] in [-1, 1]; 5 actions
-(FORWARD, TURN_LEFT, TURN_RIGHT, FIRE, NOOP).  The host loops
-(``algos/ppo/hostloop.py``, ``algos/dt/hostloop.py``) step the pool with
-``_host_reset``/``_host_step`` and call ``_obs``; the JAX env's
-``v_reset``/``v_step`` exist only for ``io_callback`` and have no
-counterpart here.
+(FORWARD, TURN_LEFT, TURN_RIGHT, FIRE, NOOP).  Two surfaces step the pool:
+
+- the host loops (``algos/ppo/hostloop.py``, ``algos/dt/hostloop.py``) call
+  ``_host_reset``/``_host_step`` and ``_obs`` themselves;
+- ``reset(num_envs)``/``step(state, action)``, the batched-env surface of
+  the fused loops (``algos/ppo/core.py::make_recurrent_ppo``,
+  ``utils/evaluate.py``): the JAX env's ``v_reset``/``v_step``, which reach
+  the host through an ordered ``io_callback``.  Here the loop is Python, so
+  each step copies the action to the host (one device -> host sync) and
+  the arrays back.  The state is a step counter; the C++ pool resets done
+  envs itself, so ``step`` has no auto-reset and its ``info`` no
+  ``final_obs``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import functools
 import os
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,25 +73,39 @@ _lib = None
 _BOUND_PREFIXES = set()
 
 
-def build_native() -> Path:
-    """``native/build/libmmtrl_atari.so``, compiled from the repo's sources
-    with the Makefile's flags when it is missing.  The compiler writes a
+def compile_library(lib_path: Path, sources, include_flags=()) -> Path:
+    """``lib_path`` compiled from ``sources`` (relative to ``native/``) with
+    ``native/Makefile``'s flags when it is missing.  The compiler writes a
     temporary file that is renamed into place, so processes building at
     once never load a half-written library.  Raises with the compiler's
     output when the build fails."""
-    if LIB_PATH.exists():
-        return LIB_PATH
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.tmp.{os.getpid()}")
-    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-Iatari", *LIB_SOURCES, *LDFLAGS,
+    if lib_path.exists():
+        return lib_path
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.tmp.{os.getpid()}")
+    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, *include_flags, *sources, *LDFLAGS,
            "-o", str(tmp)]
     r = subprocess.run(cmd, cwd=NATIVE_DIR, capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {LIB_PATH} failed ({' '.join(cmd)}):\n"
+        raise RuntimeError(f"building {lib_path} failed ({' '.join(cmd)}):\n"
                            f"{r.stdout}{r.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def build_native() -> Path:
+    """``native/build/libmmtrl_atari.so``, built from the repo's sources when
+    it is missing."""
+    return compile_library(LIB_PATH, LIB_SOURCES, ("-Iatari",))
+
+
+def native_library() -> ctypes.CDLL:
+    """The 2600 library, built if needed and loaded once a process."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build_native()))
+    return _lib
 
 
 def load_native(prefix: str = "mmtrl_skel") -> ctypes.CDLL:
@@ -92,9 +113,7 @@ def load_native(prefix: str = "mmtrl_skel") -> ctypes.CDLL:
     API.  Both adapters (``skel_env.cc`` for Skeleton+, ``abi_env.cc`` for
     the homebrew cartridges) export the same signatures under their own
     prefixes."""
-    global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(str(build_native()))
+    native_library()
     if prefix not in _BOUND_PREFIXES:
         ptr = np.ctypeslib.ndpointer
 
@@ -156,7 +175,10 @@ def _luma_lut() -> np.ndarray:
 
 class NativeSkeletonPlus:
     """A pool of ``num_envs`` emulated cartridges; the observation is made
-    on ``device`` (the card unless ``device="cpu"``)."""
+    on ``device`` (the card unless ``device="cpu"``).  Not an
+    ``envs/base.py::Environment``: that class's ``step`` would auto-reset
+    through ``reset``, which restarts every cartridge, while the C++ pool
+    resets only the envs that are done."""
 
     PREFIX = "mmtrl_skel"
 
@@ -273,6 +295,37 @@ class NativeSkeletonPlus:
             return kd
         return (REWARD_KILL * kd + REWARD_LIFE * ld + REWARD_WIN * win
                 + np.float32(REWARD_STEP)).astype(np.float32)
+
+    # ---- batched-env surface of the fused loops ------------------------------
+    def reset(self, num_envs: int, generator: Optional[torch.Generator] = None):
+        """(obs, state): the pool reset and its observation on the device,
+        the state an int32 step counter at 0.  ``num_envs`` must be the
+        pool's size.  ``generator`` is accepted and unused, as JAX ignores
+        its keys: the C++ pool's per-env generators and the sticky-action
+        generator draw the randomness, so a reset takes nothing from the
+        run's generator."""
+        if num_envs != self.num_envs:
+            raise ValueError(f"{self.name}: a pool of {self.num_envs} envs cannot reset "
+                             f"{num_envs}")
+        obs = self._obs(*self._host_reset())
+        return obs, torch.zeros(num_envs, dtype=torch.int32, device=self.device)
+
+    def step(self, state: torch.Tensor, action: torch.Tensor,
+             generator: Optional[torch.Generator] = None):
+        """(obs, state + 1, reward, done, info) of one pool step under
+        ``action`` (N,): the action is copied to the host (a device -> host
+        sync), the pool steps and resets its done envs, and the observation
+        is made on the device.  Reward float32 and done bool on the device,
+        ``info = {"kills", "life"}`` int32; no ``final_obs``.  ``generator``
+        is unused, as in ``reset``."""
+        actions = np.asarray(action.detach().cpu(), dtype=np.int32)
+        frames, audio, kd, ld, done, win, kills, life = self._host_step(actions)
+        dev = self.device
+        info: Dict[str, torch.Tensor] = {"kills": torch.as_tensor(kills, device=dev),
+                                         "life": torch.as_tensor(life, device=dev)}
+        return (self._obs(frames, audio), state + 1,
+                torch.as_tensor(self._reward(kd, ld, win), device=dev),
+                torch.as_tensor(done.astype(bool), device=dev), info)
 
     # ---- spaces ------------------------------------------------------------
     @property

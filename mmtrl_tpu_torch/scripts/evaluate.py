@@ -11,9 +11,11 @@ two-tower agent on the env's audio channels (two on ``skeleton_plus``,
 the device simulator); give its ``--attn-type`` and ``--input-scale 1``,
 as for the JAX script.  ``--script ppo`` rebuilds the classic-control MLP
 agent on the env's observation width.  ``--env-id skeleton_plus_native``
-(the native pool in the device loop, through JAX's ``io_callback``) waits
-for ROADMAP A.7 and raises.  The cartridge runs' greedy evaluation is the
-host loops' ``--eval-steps``; DQN's and C51's is their runner's.
+evaluates on the Skeleton+ ROM's pool of ``--num-envs`` cartridges (the
+sim -> ROM transfer check), stepped through its ``reset``/``step``; it
+needs ``SkelPlus.bin`` (``$MMTRL_SKELETON_ROM`` or ``roms/``) and raises
+``FileNotFoundError`` without it.  The host loops' own greedy evaluation
+is their ``--eval-steps``; DQN's and C51's is their runner's.
 
     python -m mmtrl_tpu_torch.scripts.evaluate --load-from saved_agents/<run_name> \\
         --script skeleton_plus_ppo --env-id skeleton_plus --attn-type casl --input-scale 1
@@ -73,19 +75,22 @@ def build_model(args, env, device):
 
 def main(args=None):
     args = args or cli(Args)
-    if args.env_id.lower() == "skeleton_plus_native":
-        raise NotImplementedError(f"--env-id {args.env_id}: evaluating the native pool in the "
-                                  "device loop (JAX's io_callback) is not ported (ROADMAP A.7); "
-                                  "the PPO host loop's --eval-steps evaluates greedily")
     device = device_from(args)
-    env = make(args.env_id, device=device)
-    model, recurrent = build_model(args, env, device)
-    model.load_state_dict(load_run(args.load_from, map_location=device)["model"])
-    carry = model.initial_carry(args.num_envs, device) if recurrent else None
-    results = evaluate_policy(
-        env, model, torch.Generator(device=device).manual_seed(args.seed),
-        num_envs=args.num_envs, num_steps=args.num_steps, greedy=args.greedy,
-        recurrent=recurrent, initial_carry=carry)
+    native = args.env_id.lower() == "skeleton_plus_native"
+    # the ROM's pool has a fixed size, which must be the evaluation's
+    env = (make(args.env_id, num_envs=args.num_envs, device=device) if native
+           else make(args.env_id, device=device))
+    try:
+        model, recurrent = build_model(args, env, device)
+        model.load_state_dict(load_run(args.load_from, map_location=device)["model"])
+        carry = model.initial_carry(args.num_envs, device) if recurrent else None
+        results = evaluate_policy(
+            env, model, torch.Generator(device=device).manual_seed(args.seed),
+            num_envs=args.num_envs, num_steps=args.num_steps, greedy=args.greedy,
+            recurrent=recurrent, initial_carry=carry)
+    finally:
+        if native:
+            env.close()
     results = {k: float(v) for k, v in results.items()}
     print(results)
     return results

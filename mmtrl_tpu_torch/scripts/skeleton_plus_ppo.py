@@ -7,18 +7,21 @@ the two stereo MFCC planes) trains with recurrent PPO:
 - ``--backend sim`` (the default): the device ``SkeletonPlusSim``
   (``envs/skeleton_plus.py``) through ``make_recurrent_ppo`` and the PPO
   runner, as ``scripts.train`` runs Minecraft2d;
-- ``--backend native --host-loop``: the C++ core emulates a cartridge on
-  the host (``algos/ppo/hostloop.py``); ``--env-id`` names a ``*_native``
-  env, the bare ``skeleton_plus`` the Skeleton+ ROM
+- ``--backend native``: the C++ core emulates the cartridge pool of
+  ``--env-id`` on the host, a ``*_native`` id (``rally_native``,
+  ``brick_native``), the bare ``skeleton_plus`` the Skeleton+ ROM
   (``$MMTRL_SKELETON_ROM`` or ``roms/SkelPlus.bin``, not in the
-  repository yet).  ``--backend native`` without ``--host-loop`` (the JAX
-  fused path through ``io_callback``) raises, naming ROADMAP A.7.
+  repository yet).  Without ``--host-loop`` the pool runs inside
+  ``make_recurrent_ppo`` and the PPO runner through its
+  ``reset``/``step`` (the JAX script's fused loop, which reaches the pool
+  through ``io_callback``); with it, in ``algos/ppo/hostloop.py``.
 
 Same CLI as the JAX script.
 
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --cuda False --conv-size small \\
         --num-envs 2 --num-steps 8 --total-timesteps 32
+    python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --backend native --env-id rally_native
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --backend native --host-loop \\
         --rom-path <SkelPlus.bin>
 """
@@ -56,7 +59,7 @@ class Args(BasePPOArgs):
         0.0, "ALE-v5 sticky actions, native backend (reference envpool setting: 0.25)")
     host_loop: bool = field(
         False, "native backend via the host rollout loop (policy and update on the card, "
-        "emulation on the host): the port's only native path")
+        "emulation on the host)")
     eval_steps: int = field(4000, "greedy eval env-steps after host-loop training (0: skip)")
 
 
@@ -78,10 +81,6 @@ def main(args=None):
     args = args or cli(Args)
     if args.host_loop and args.backend != "native":
         raise SystemExit("--host-loop requires --backend native")
-    if args.backend == "native" and not args.host_loop:
-        raise NotImplementedError("--backend native without --host-loop: the fused loop reaches "
-                                  "the pool through io_callback, which the port does not have "
-                                  "(ROADMAP A.7); use --host-loop")
     device = device_from(args)
     env = make_env(args, device)
     try:
@@ -100,7 +99,7 @@ def main(args=None):
         return run_recurrent_ppo_hostloop(env, model, cfg, args, device,
                                           eval_steps=args.eval_steps)
     finally:
-        if args.host_loop:  # the native pool
+        if args.backend == "native":
             env.close()
 
 

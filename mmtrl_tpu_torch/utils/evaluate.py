@@ -7,7 +7,9 @@ with feedforward ``model(obs) -> (logits, value, ...)`` and recurrent
 ``model(obs[T, B], done[T, B], carry) -> (logits, value, carry)`` agents.
 One ``torch.Generator`` drives the reset draws and, when sampling, the
 actions.  ``evaluate_actions`` is the off-policy trainers' final greedy
-evaluation, generic over the action rule.
+evaluation, generic over the action rule.  The env is a device env or a
+native pool (``envs/skeleton_native.py``), whose ``reset``/``step`` cross
+to the host each step.
 """
 
 from __future__ import annotations
@@ -62,8 +64,10 @@ def evaluate_actions(
     num_steps: int = 1000,
 ) -> Dict[str, torch.Tensor]:
     """``num_steps`` steps of ``num_envs`` envs under ``act_fn(obs) ->
-    action``: argmax-Q for DQN, the expected-Q argmax for C51.  Episode
-    returns take the env's ``raw_reward`` where it reports one."""
+    action``: argmax-Q for DQN, the expected-Q argmax for C51.  A native
+    pool has a fixed size, which replaces ``num_envs``.  Episode returns
+    take the env's ``raw_reward`` where it reports one."""
+    num_envs = getattr(env, "num_envs", num_envs)  # a native pool's fixed size
     obs, env_state = env.reset(num_envs, generator)
     stats = EpisodeStatistics.create(num_envs, obs.device)
     for _ in range(num_steps):

@@ -49,13 +49,17 @@ CLASSIC_MODULES = [
     # Doorpuzzle and the two-player Pong
     "envs/doorpuzzle.py", "envs/pong_ma.py", "envs/assets.py", "envs/registry.py",
     "algos/hostpool.py", "algos/ppo/hostloop.py", "scripts/ppo_ma_pong.py",
+    # the native pools in the fused loops, and the two raw bridges
+    "envs/skeleton_native.py", "utils/evaluate.py", "envs/native_bridge.py",
+    "envs/atari_bridge.py",
 ]
 
 
 @pytest.mark.parametrize("name", CLASSIC_MODULES)
 def test_classic_modules_are_scanned(name):
     """The later slices' modules (classic control, discrete and continuous;
-    procmaze and the two-agent env; Doorpuzzle and the two-player Pong) are
+    procmaze and the two-agent env; Doorpuzzle and the two-player Pong; the
+    native pools' fused surface and the two raw bridges) are
     among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 

@@ -26,6 +26,7 @@ from mmtrl_tpu_torch.scripts import (
     evaluate,
     rally_ppo,
     skeleton_plus_ppo,
+    td3_continuous_action,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -133,11 +134,18 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
      "--host-loop requires --backend native"),
     (dqn_rom, ["--cuda", "False", "--env-id", "skeleton_plus_native"], FileNotFoundError,
      "SkelPlus.bin"),
-    (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native"], NotImplementedError,
+    # was skeleton_plus_ppo --backend native, which now runs the fused loop
+    # (its missing-ROM case is the last one): moved to a branch that still
+    # raises naming A.7
+    (td3_continuous_action, ["--cuda", "False", "--env-id", "Humanoid-v4"], NotImplementedError,
      "ROADMAP A.7"),
     (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native", "--host-loop"],
      FileNotFoundError, "SkelPlus.bin"),
     (dt_rom, ["--cuda", "False", "--max-timestep", "2048"], FileNotFoundError, "SkelPlus.bin"),
+    (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native"], FileNotFoundError,
+     "SkelPlus.bin"),
+    (evaluate, ["--cuda", "False", "--load-from", "x", "--env-id", "skeleton_plus_native"],
+     FileNotFoundError, "SkelPlus.bin"),
 ])
 def test_unported_branches_and_the_missing_skeleton_rom_raise(module, argv, error, match):
     with pytest.raises(error, match=match):
