@@ -162,7 +162,24 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 64; two ``AtariPool``s on RALLY's ROM equal, one window's
                 MFCC card vs CPU.  No kernel lies on these paths: zero
                 launches.
-17. timing   -- each kernel, its plain version and the PyTorch call that
+17. host_loops -- the gymnasium host bridge, the off-policy host loop and
+                the two evaluation tools, a stand-in sub-env (gymnasium's
+                Pendulum-v1 in numpy, 200-step time limit, defined here)
+                behind ``GymPool``, as the card's machine has no gymnasium:
+                the pool's ``reset``/``step`` card vs CPU (2 envs, 450 steps,
+                all six arrays equal, truncations at 200 and 400);
+                ``chunk_fn`` of SAC, TD3 and DDPG on one 64-step chunk card
+                vs CPU in float64 (1e-12) and equal bit for bit to the fused
+                loop on the card; SAC through ``run_offpolicy_hostloop`` (2
+                envs, learning_starts 512, 2,304 steps, a save at 2,048, a
+                resume from it for the last 256 held against the unbroken
+                run, the chunks timed, a greedy evaluation); one
+                ``ppo_continuous_action`` update on the stand-in pool, its
+                host round trip timed; ``tools.eval_rom_policy`` on RALLY
+                and ``tools.eval_pong`` against the tracker and noop, the
+                taped logits card vs CPU within 1e-5.  No kernel lies on
+                these paths: zero launches.
+18. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -3703,6 +3720,551 @@ def phase_native_pools(smi: str, tmp: str):
     restoring_flags(native_pools_checks, smi, tmp)
 
 
+# The gymnasium host bridge, the off-policy host loop and the two
+# evaluation tools.  The card's machine has no gymnasium (nor mujoco), so
+# the phase hands ``GymPool`` a stand-in sub-env: gymnasium's Pendulum-v1
+# in numpy under its 200-step time limit, defined here and nowhere in the
+# package.  Everything but gymnasium itself runs as a user's run does.
+HOST_ENVS = 2
+HOST_POOL_STEPS = 450  # (a): through two time limits
+HOST_TIME_LIMIT = 200
+# (b) one chunk of 64 steps of 2 envs, updates once more than 64
+# transitions are stored (steps 33-64: 32 updates at batch 256)
+HOST_CHUNK = 64
+HOST_CHUNK_STARTS = 64
+# (c) SAC through run_offpolicy_hostloop: 2 envs, chunks of 64 steps,
+# learning_starts 512, a save at 2,048 steps, 256 more from it
+HOST_LOOP_STEPS, HOST_LOOP_MORE, HOST_LOOP_STARTS = 2048, 256, 512
+HOST_EVAL_EPISODES = 2
+# (e) eval_rom_policy on rally_native; (f) eval_pong, from the phase's own
+# checkpoint of a random small-tower casl agent (6 actions, input scale 1)
+TOOL_ROM_ARGS = ["--env-id", "rally_native", "--num-envs", "8", "--num-steps", "256"]
+TOOL_PONG_ARGS = ["--num-envs", "4", "--num-steps", "300", "--episode-steps", "150"]
+# The taped policy's logits, card against CPU: the agents' checks'
+# tolerance (tests of the port read 1.2e-6 for the casl agent)
+TOOL_LOGIT_ATOL = 1e-5
+
+
+class StandInBox:
+    """The fields of ``gymnasium.spaces.Box`` that ``GymPool`` reads."""
+
+    def __init__(self, low, high):
+        import numpy as np
+
+        self.low, self.high = np.asarray(low, np.float32), np.asarray(high, np.float32)
+        self.shape = self.low.shape
+
+
+class StandInPendulum:
+    """gymnasium's Pendulum-v1 (``classic_control/pendulum.py``) in numpy
+    under a ``HOST_TIME_LIMIT``-step time limit: ``reset(seed=)`` restarts
+    its generator, ``step(a)`` gives ``(obs, reward, terminated,
+    truncated, info)``; the spaces are Boxes."""
+
+    def __init__(self):
+        import numpy as np
+
+        self.np = np
+        self.observation_space = StandInBox([-1.0, -1.0, -8.0], [1.0, 1.0, 8.0])
+        self.action_space = StandInBox([-2.0], [2.0])
+        self._rng, self._t, self._state = np.random.default_rng(), 0, None
+
+    def reset(self, seed=None, options=None):
+        np = self.np
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state, self._t = self._rng.uniform([-np.pi, -1.0], [np.pi, 1.0]), 0
+        return self._obs(), {}
+
+    def step(self, action):
+        np = self.np
+        th, thdot = self._state
+        u = float(np.clip(action, -2.0, 2.0)[0])
+        cost = ((th + np.pi) % (2 * np.pi) - np.pi) ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = float(np.clip(thdot + (3 * 10.0 / 2 * np.sin(th) + 3.0 * u) * 0.05, -8.0, 8.0))
+        self._state, self._t = np.array([th + thdot * 0.05, thdot]), self._t + 1
+        return self._obs(), -cost, False, self._t >= HOST_TIME_LIMIT, {}
+
+    def _obs(self):
+        th, thdot = self._state
+        return self.np.array([self.np.cos(th), self.np.sin(th), thdot], self.np.float32)
+
+    def close(self):
+        pass
+
+
+def stand_in_pool_cls():
+    """``GymPool`` building a ``StandInPendulum`` in place of each
+    ``gymnasium.make``."""
+    from mmtrl_tpu_torch.envs.gym_bridge import GymPool
+
+    class StandInPool(GymPool):
+        def _make_sub_env(self, index: int):
+            return StandInPendulum()
+
+    return StandInPool
+
+
+def host_pool_checks(smi: str):
+    """(a) The pool's ``reset``/``step`` on the card against a CPU pool of
+    the same seed, 2 envs x 450 steps of uniform torques: obs, final_obs,
+    reward, raw reward, done and truncated equal, every tensor on the card;
+    both envs truncated at steps 200 and 400 with ``final_obs`` apart from
+    the fresh observation; the card's step (the action to the host, the
+    six arrays back in one copy) timed."""
+    import numpy as np
+
+    Pool = stand_in_pool_cls()
+    card_pool, cpu_pool = Pool("Pendulum-v1", HOST_ENVS, seed=SEED), Pool(
+        "Pendulum-v1", HOST_ENVS, seed=SEED, device="cpu")
+    rng = np.random.default_rng(SEED)
+    (o, s), (co, cs) = card_pool.reset(HOST_ENVS), cpu_pool.reset(HOST_ENVS)
+    equal, on_card = torch.equal(o.cpu(), co) and torch.equal(s.cpu(), cs), o.is_cuda and s.is_cuda
+    truncated_at, apart, step_s = [], True, 0.0
+    for t in range(1, HOST_POOL_STEPS + 1):
+        a = torch.from_numpy(rng.uniform(-2, 2, (HOST_ENVS, 1)).astype(np.float32))
+        a_card = a.cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = card_pool.step(s, a_card)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        ref = cpu_pool.step(cs, a)
+        (o, s, r, d, info), (co, cs, cr, cd, cinfo) = out, ref
+        pairs = [(o, co), (s, cs), (r, cr), (d, cd)] + [(info[k], cinfo[k]) for k in cinfo]
+        equal &= all(torch.equal(x.cpu(), y) for x, y in pairs) and set(info) == {
+            "final_obs", "raw_reward", "truncated"}
+        on_card &= all(x.is_cuda for x, _ in pairs)
+        if d.any():
+            truncated_at.append(t)
+            apart &= bool(info["truncated"].all() and (info["final_obs"] != o).any(-1).all())
+    card_pool.close()
+    cpu_pool.close()
+    ok = equal and on_card and apart and truncated_at == [200, 400]
+    emit("host_pool", envs=HOST_ENVS, steps=HOST_POOL_STEPS, all_equal=equal, on_card=on_card,
+         truncated_at=truncated_at, final_obs_apart=apart,
+         ms_per_step_round_trip=1e3 * step_s / HOST_POOL_STEPS, card=smi, ok=ok)
+    check(ok, f"GymPool card vs CPU: equal {equal}, on card {on_card}, truncated at "
+              f"{truncated_at}, final_obs apart {apart}")
+
+
+def recorded_host_chunk(steps: int, seed: int):
+    """(steps, 2, ...) transitions of the stand-in pool under uniform
+    torques, stored as the host loop stores them."""
+    import numpy as np
+
+    pool = stand_in_pool_cls()("Pendulum-v1", HOST_ENVS, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    obs, out = pool._host_reset(), {k: [] for k in ("obs", "action", "reward", "next_obs", "done")}
+    for _ in range(steps):
+        a = rng.uniform(-2, 2, (HOST_ENVS, 1)).astype(np.float32)
+        nobs, final_obs, r, _, d, trunc = pool._host_step(a)
+        for k, v in zip(out, (obs, a, r, np.where(d[:, None], final_obs, nobs),
+                              (d.astype(bool) & ~trunc.astype(bool)).astype(np.float32))):
+            out[k].append(v)
+        obs = nobs
+    return {k: torch.from_numpy(np.stack(v)) for k, v in out.items()}
+
+
+def host_chunk_checks(smi: str):
+    """(b) ``chunk_fn`` of SAC, TD3 and DDPG on one recorded chunk (64
+    steps of 2 envs, 32 updates at batch 256), on the card and on the CPU
+    in float64 from the same weights and draws: every parameter, target
+    and SAC's temperature within ``PER_TD_ATOL_FLOAT64``.  Then on the
+    card in float32 the fused ``train_iteration`` on the stand-in pool and
+    ``chunk_fn`` on the transitions it stored, from copies of one state
+    under the same draws: every buffer entry, parameter, Adam moment and
+    metric equal bit for bit."""
+    import copy
+    import importlib
+
+    from mmtrl_tpu_torch.algos.offpolicy.ddpg import ContinuousDraws
+    from mmtrl_tpu_torch.algos.offpolicy.hostloop import SpecEnv
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.ops.fused_optim import init_adam_state
+    from mmtrl_tpu_torch.scripts._common import config_of
+    from mmtrl_tpu_torch.scripts import (
+        ddpg_continuous_action,
+        sac_continuous_action,
+        td3_continuous_action,
+    )
+
+    Pool = stand_in_pool_cls()
+    chunk = recorded_host_chunk(HOST_CHUNK, SEED + 1)
+    g = torch.Generator().manual_seed(SEED)
+    n, B = HOST_ENVS, CONT_BATCH
+    algos = (("sac", sac_continuous_action, "make_sac", "SACConfig"),
+             ("td3", td3_continuous_action, "make_td3", "TD3Config"),
+             ("ddpg", ddpg_continuous_action, "make_ddpg", "DDPGConfig"))
+    for name, module, factory_name, cfg_name in algos:
+        algo_module = importlib.import_module(f"mmtrl_tpu_torch.algos.offpolicy.{name}")
+        factory, cfg_cls = getattr(algo_module, factory_name), getattr(algo_module, cfg_name)
+        args = cli(module.Args, [])
+        cfg = dataclasses.replace(config_of(cfg_cls, args), num_envs=n,
+                                  learning_starts=HOST_CHUNK_STARTS, steps_per_iteration=HOST_CHUNK)
+        draws = []
+        for t in range(HOST_CHUNK):
+            train = (t + 1) * n > HOST_CHUNK_STARTS
+            draws.append(ContinuousDraws(
+                torch.randn(n, 1, generator=g), torch.rand(n, 1, generator=g) * 4 - 2,
+                torch.randint(0, (t + 1) * n, (B,), generator=g) if train else None,
+                torch.randn(B, 1, generator=g, dtype=torch.float64) if train else None,
+                [torch.randn(B, 1, generator=g, dtype=torch.float64) for _ in range(2)]
+                if train else None))
+        pool_cpu = Pool("Pendulum-v1", n, device="cpu")  # its shapes and spaces
+        actor, critics = module.networks(args, SpecEnv(pool_cpu, n, torch.device("cpu")),
+                                         torch.device("cpu"))
+
+        # float64, card against CPU
+        results, t_card = {}, 0.0
+        for device in ("cpu", "cuda"):
+            dev = torch.device(device)
+            a = copy.deepcopy(actor).to(dev)
+            cs = [copy.deepcopy(c).to(dev) for c in critics]
+            algo = factory(SpecEnv(pool_cpu, n, dev), a, *cs, cfg)
+            runner = algo.init_runner(torch.Generator(device=dev).manual_seed(SEED))
+            ts = runner.train_state
+            for net in [ts.actor] + list(ts.critics):
+                for part in ("model", "target"):
+                    if getattr(net, part) is not None:
+                        getattr(net, part).double()
+                net.opt_state = init_adam_state(net.params)
+            if ts.log_alpha is not None:
+                ts.log_alpha = ts.log_alpha.double()
+                ts.alpha_opt_state = init_adam_state([ts.log_alpha])
+            runner.buffer.data = {k: v.double() for k, v in runner.buffer.data.items()}
+            moved = [dr._replace(**{k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                                        [x.to(dev) for x in v] if v is not None else None)
+                                    for k, v in dr._asdict().items()}) for dr in draws]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner, metrics = algo.chunk_fn(
+                runner, {k: v.to(dev, torch.float64) for k, v in chunk.items()}, moved)
+            torch.cuda.synchronize()
+            if device == "cuda":
+                t_card = time.perf_counter() - t0
+            ts = runner.train_state
+            modules = [m for net in [ts.actor] + list(ts.critics)
+                       for m in (net.model, net.target) if m is not None]
+            results[device] = (modules, ts, {k: float(v) for k, v in metrics.items()})
+        err, at = param_err(results["cuda"][0], results["cpu"][0])
+        if results["cpu"][1].log_alpha is not None:
+            alpha_err = abs(results["cuda"][1].log_alpha.item()
+                            - results["cpu"][1].log_alpha.item())
+            if alpha_err > err:
+                err, at = alpha_err, "log_alpha"
+        steps = [int(c.step) for c in results["cuda"][1].critics]
+        ok64 = err <= PER_TD_ATOL_FLOAT64 and steps == [HOST_CHUNK - HOST_CHUNK_STARTS // n] * len(
+            steps)
+
+        # float32 on the card: the fused loop on the stand-in pool against
+        # the chunk path on what it stored
+        runs = []
+        for env in (Pool("Pendulum-v1", n, seed=SEED + 2), None):
+            a = copy.deepcopy(actor).cuda()
+            cs = [copy.deepcopy(c).cuda() for c in critics]
+            algo = factory(env if env is not None else SpecEnv(pool_cpu, n, torch.device("cuda")),
+                           a, *cs, cfg)
+            runs.append((algo, algo.init_runner(torch.Generator(device="cuda").manual_seed(SEED))))
+        def on_card(x):
+            return x.cuda().float() if x.is_floating_point() else x.cuda()
+
+        card_draws = [dr._replace(**{k: (on_card(v) if isinstance(v, torch.Tensor) else
+                                         [on_card(x) for x in v] if v is not None else None)
+                                     for k, v in dr._asdict().items()}) for dr in draws]
+        (fused_algo, fused), (chunk_algo, chunked) = runs
+        fused, fm = fused_algo.train_iteration(fused, card_draws)
+        stored = {k: v[:HOST_CHUNK * n].reshape((HOST_CHUNK, n) + v.shape[1:]).clone()
+                  for k, v in fused.buffer.data.items()}
+        chunked, cm = chunk_algo.chunk_fn(chunked, stored, card_draws)
+        mine, theirs = chunked.payload(), fused.payload()
+        differing = [k for k in ("train_state", "buffer", "global_step")
+                     if not _same_payload(mine[k], theirs[k])]
+        same_metrics = {k: float(v) for k, v in fm.items()} == {k: float(v) for k, v in cm.items()}
+        ok = ok64 and not differing and same_metrics
+        emit("host_chunk", algo=name, envs=n, steps=HOST_CHUNK, updates=steps,
+             batch_size=B, float64_worst_abs_err=err, worst_param=at, atol=PER_TD_ATOL_FLOAT64,
+             float64_card_chunk_s=t_card, fused_equals_chunk_fields_differing=differing,
+             fused_equals_chunk_metrics=same_metrics,
+             metrics_card_cpu={k: (results["cuda"][2][k], results["cpu"][2][k])
+                               for k in results["cpu"][2]}, card=smi, ok=ok)
+        check(ok, f"{name} chunk path: float64 {err} at {at} (updates {steps}); fused vs chunk "
+                  f"differ in {differing}, metrics equal {same_metrics}")
+
+
+def host_loop_run(smi: str, tmp: str):
+    """(c) SAC through ``run_offpolicy_hostloop`` on a stand-in pool of 2
+    envs (chunks of 64 steps, learning_starts 512, batch 256): an unbroken
+    run of 2,304 steps saving at 2,048; a second run resumed from that save
+    through ``--load-from`` for the last 256, held against the unbroken
+    one (the state it loads equal to the unbroken run's at 2,048 bit for
+    bit; its global step and update counts equal at the end, and the
+    stored rows before 2,048; the rows after differ, as the host envs
+    restart from their seeds as in JAX); a chunk's host and card seconds;
+    the greedy evaluation of 2 episodes; one more training chunk (the
+    unbroken run's last 64 stored steps) through ``chunk_fn`` under the
+    profiler, for the card's busy and idle share of a chunk."""
+    import copy
+    import os
+    import types
+
+    from mmtrl_tpu_torch.algos.offpolicy import hostloop
+    from mmtrl_tpu_torch.algos.offpolicy.hostloop import SpecEnv, run_offpolicy_hostloop
+    from mmtrl_tpu_torch.algos.offpolicy.sac import SACConfig, make_sac
+    from mmtrl_tpu_torch.core.checkpoint import load_run
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import sac_continuous_action
+
+    Pool = stand_in_pool_cls()
+    save_dir = os.path.join(tmp, "host_loop_ck")
+    saves, plain_save = {}, hostloop.save_run
+
+    def recording_save(payload, run_name, save_dir):
+        if payload["global_step"] == HOST_LOOP_STEPS and run_name == "unbroken":
+            saves["at_save"] = copy.deepcopy(payload)
+            plain_save(payload, "at_2048", save_dir)
+        return plain_save(payload, run_name, save_dir)
+
+    total = HOST_LOOP_STEPS + HOST_LOOP_MORE
+    cfg = SACConfig(total_timesteps=total, num_envs=HOST_ENVS,
+                    learning_starts=HOST_LOOP_STARTS, steps_per_iteration=512)
+
+    def run(run_name, load_from=""):
+        args = types.SimpleNamespace(**dict(
+            vars(cli(sac_continuous_action.Args, [])), env_id="Pendulum-v1",
+            exp_name="host_loops", seed=SEED, chunk_size=HOST_CHUNK,
+            save_interval=HOST_LOOP_STEPS // (HOST_CHUNK * HOST_ENVS), save_dir=save_dir,
+            load_from=load_from))
+        pool = Pool("Pendulum-v1", HOST_ENVS, seed=SEED)
+        actor, critics = sac_continuous_action.networks(
+            args, SpecEnv(pool, HOST_ENVS, torch.device("cuda")), torch.device("cuda"))
+        t0 = time.perf_counter()
+        out = run_offpolicy_hostloop(make_sac, pool, actor, critics, cfg, args,
+                                     torch.device("cuda"), run_name=run_name,
+                                     eval_episodes=HOST_EVAL_EPISODES)
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+
+    hostloop.save_run = recording_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        unbroken = run("unbroken")
+        resumed = run("resumed", os.path.join(save_dir, "at_2048"))
+    finally:
+        hostloop.save_run = plain_save
+    # the checkpoint the resumed run loaded: the unbroken run's state at 2,048
+    restored = _same_payload(load_run(os.path.join(save_dir, "at_2048"), map_location="cpu"),
+                             saves["at_save"])
+    rts, uts = resumed["runner"].train_state, unbroken["runner"].train_state
+    rb, ub = resumed["runner"].buffer, unbroken["runner"].buffer
+    rows_equal = all(torch.equal(rb.data[k][:HOST_LOOP_STEPS], ub.data[k][:HOST_LOOP_STEPS])
+                     for k in rb.data)
+    counts = ([int(c.step) for c in rts.critics] + [int(rts.actor.step)],
+              [int(c.step) for c in uts.critics] + [int(uts.actor.step)])
+    updates = (HOST_LOOP_STEPS + HOST_LOOP_MORE - HOST_LOOP_STARTS) // HOST_ENVS
+    walls = unbroken["chunk_walls"]
+    warm = [w for i, w in enumerate(walls) if (i + 1) * HOST_CHUNK * HOST_ENVS <= HOST_LOOP_STARTS]
+    training = walls[len(warm) + 1:]  # past the first training chunk (first launches)
+    train_host = sum(w[0] for w in training)
+    train_card = sum(w[1] for w in training)
+    ok = (restored and rows_equal and counts[0] == counts[1] == [updates] * 3
+          and unbroken["global_step"] == resumed["global_step"] == HOST_LOOP_STEPS + HOST_LOOP_MORE
+          and resumed["chunks"] == HOST_LOOP_MORE // (HOST_CHUNK * HOST_ENVS)
+          and all(math.isfinite(x) for x in (unbroken["eval_episodic_return"],
+                                             resumed["eval_episodic_return"]))
+          and unbroken["episodes"] >= HOST_ENVS * 5)
+    # one more training chunk, profiled: the unbroken run's last 64 steps
+    spec = SpecEnv(Pool("Pendulum-v1", HOST_ENVS, seed=SEED), HOST_ENVS, torch.device("cuda"))
+    actor, critics = sac_continuous_action.networks(
+        cli(sac_continuous_action.Args, []), spec, torch.device("cuda"))
+    algo = make_sac(spec, actor, *critics, cfg)
+    rows = slice(total - HOST_CHUNK * HOST_ENVS, total)
+    transitions = {k: v[rows].clone().reshape((HOST_CHUNK, HOST_ENVS) + tuple(v.shape[1:]))
+                   for k, v in ub.data.items()}
+    _, prof_wall, prof_ops, prof_busy, prof_top = device_profile(
+        lambda: algo.chunk_fn(unbroken["runner"], transitions))
+    emit("host_loop", algo="sac", envs=HOST_ENVS, chunk=HOST_CHUNK, steps=unbroken["global_step"],
+         chunks=unbroken["chunks"], updates=counts[1], wall_s=unbroken["wall_s"],
+         train_env_steps_per_s=len(training) * HOST_CHUNK * HOST_ENVS / (train_host + train_card),
+         warmup_chunk_card_ms=1e3 * sum(w[1] for w in warm) / len(warm),
+         training_chunk_card_ms=1e3 * train_card / len(training),
+         training_chunk_host_ms=1e3 * train_host / len(training),
+         host_share_of_training_chunk=train_host / (train_host + train_card),
+         profiled_chunk_ms=1e3 * prof_wall, profiled_chunk_device_ops=prof_ops,
+         profiled_chunk_busy_ms=prof_busy, profiled_chunk_idle=1 - prof_busy / (1e3 * prof_wall),
+         profiled_chunk_top=prof_top[:4],
+         episodes=unbroken["episodes"], episodic_return=unbroken["episodic_return"],
+         eval_return=unbroken["eval_episodic_return"], eval_episodes=HOST_EVAL_EPISODES,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+    emit("host_loop_resume", resumed_from=HOST_LOOP_STEPS, more_steps=HOST_LOOP_MORE,
+         loaded_state_equals_unbroken_at_save=restored, rows_before_save_equal=rows_equal,
+         update_counts_resumed_unbroken=counts, wall_s=resumed["wall_s"], card=smi, ok=ok)
+    check(ok, f"host loop resume: restored {restored}, rows {rows_equal}, counts {counts}, "
+              f"steps {unbroken['global_step']} / {resumed['global_step']}")
+
+
+def host_ppo_run(smi: str, tmp: str):
+    """(d) One ``ppo_continuous_action`` update through ``main`` on a
+    stand-in pool (``make_any``'s bridge branch; ``--norm-obs False
+    --norm-reward False``: wrap ``"none"``) at the defaults' 4 envs x 2,048
+    steps, 32 x 10 minibatches; each pool step timed (the action to the
+    host and the results back)."""
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import ppo_continuous_action
+
+    Pool = stand_in_pool_cls()
+    pools, step_s = [], []
+
+    def stand_in_make_any(env_id, num_envs=None, seed=0, wrap="none", gamma=0.99, device=None):
+        pool = Pool(env_id, num_envs, seed=seed, wrap=wrap, gamma=gamma, device=device)
+        plain_step = pool.step
+
+        def timed_step(state, action, generator=None):
+            t0 = time.perf_counter()
+            out = plain_step(state, action, generator)
+            step_s.append(time.perf_counter() - t0)  # the copy back is synchronous
+            return out
+
+        pool.step = timed_step
+        pools.append(pool)
+        return pool, True
+
+    plain = ppo_continuous_action.make_any
+    ppo_continuous_action.make_any = stand_in_make_any
+    try:
+        out = ppo_continuous_action.main(cli(ppo_continuous_action.Args, [
+            "--env-id", "Pendulum-v1", "--norm-obs", "False", "--norm-reward", "False",
+            "--total-timesteps", "8192", "--save-dir", os.path.join(tmp, "host_ppo_ck")]))
+    finally:
+        ppo_continuous_action.make_any = plain
+    row = out["history"][0]
+    rollout_steps = 2048
+    ok = (len(pools) == 1 and type(pools[0]).__name__ == "StandInPool"
+          and len(out["history"]) == 1 and len(step_s) == rollout_steps
+          and out["runner"].obs.is_cuda
+          and all(math.isfinite(v) for k, v in row.items() if k.startswith("losses/")))
+    emit("host_ppo", envs=4, steps=rollout_steps, wall_s=row["wall_s"], sps=row["sps"],
+         ms_per_step_round_trip=1e3 * sum(step_s) / len(step_s),
+         round_trip_share_of_update=sum(step_s) / row["wall_s"],
+         value_loss=row["losses/value_loss"], card=smi, ok=ok)
+    check(ok, f"ppo_continuous_action on the stand-in pool: {row}, {len(step_s)} steps")
+
+
+def host_tools(smi: str, tmp: str):
+    """(e) ``eval_rom_policy`` on ``rally_native``, 8 envs x 256 steps,
+    greedy and sampled, and (f) ``eval_pong`` against ``tracker`` and
+    ``noop``, 4 joint envs x 300 steps with 150-step episodes, each from
+    the phase's own checkpoint of a random small-tower casl agent; over the
+    greedy tracker run's taped observations the CPU's logits (the
+    checkpoint loaded there, one call over the whole tape) within
+    ``TOOL_LOGIT_ATOL`` of the card's and the greedy actions equal."""
+    import os
+
+    from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
+    from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
+    from mmtrl_tpu_torch.tools import eval_pong, eval_rom_policy
+
+    torch.manual_seed(SEED)
+    agent = dict(num_actions=6, conv_type="small", attn_type="casl", fusion_type="sum",
+                 input_scale=1.0, audio_channels=2)
+    ckpt = save_run({"model": MultimodalRecurrentAgent(**agent, device="cuda").state_dict()},
+                    "tool_agent", os.path.join(tmp, "tools_ck"))
+    t0 = time.perf_counter()
+    rom = eval_rom_policy.main(["--load-from", ckpt] + TOOL_ROM_ARGS)
+    rom_s = time.perf_counter() - t0
+    emit("host_tools", tool="eval_rom_policy", args=TOOL_ROM_ARGS, wall_s=rom_s,
+         env_steps_per_s=2 * 8 * 256 / rom_s, **{f"{rule} {k}": v for rule, res in rom.items()
+                                                  for k, v in res.items()}, card=smi)
+    check(set(rom) == {"greedy", "sampled"} and all(
+        math.isfinite(v) for res in rom.values() for v in res.values()), f"eval_rom_policy: {rom}")
+
+    tape = []
+    plain_agent = eval_pong.MultimodalRecurrentAgent
+
+    class TapedAgent(plain_agent):
+        def forward(self, obs, done, carry):
+            out = super().forward(obs, done, carry)
+            if len(tape) < 300:
+                tape.append((obs.cpu(), done.cpu(), out[0].cpu()))
+            return out
+
+    for opponent in ("tracker", "noop"):
+        eval_pong.MultimodalRecurrentAgent = TapedAgent if opponent == "tracker" else plain_agent
+        try:
+            t0 = time.perf_counter()
+            res = eval_pong.main(["--load-from", ckpt, "--opponent", opponent] + TOOL_PONG_ARGS)
+            wall = time.perf_counter() - t0
+        finally:
+            eval_pong.MultimodalRecurrentAgent = plain_agent
+        emit("host_tools", tool="eval_pong", opponent=opponent, args=TOOL_PONG_ARGS, wall_s=wall,
+             slot_steps_per_s=2 * 2 * 4 * 300 / wall,
+             **{f"{rule} {k}": v for rule, r in res.items() for k, v in r.items()}, card=smi)
+        check(all(r.get("episodes", 0) >= 4 for r in res.values()), f"eval_pong {opponent}: {res}")
+
+    cpu_model = MultimodalRecurrentAgent(**agent, device="cpu")
+    cpu_model.load_state_dict(load_run(ckpt, map_location="cpu")["model"])
+    obs = torch.cat([o for o, _, _ in tape])  # (T, 8, 3, 84, 84)
+    done = torch.cat([d for _, d, _ in tape])
+    card_logits = torch.cat([lg for _, _, lg in tape])
+    with torch.no_grad():
+        cpu_logits = cpu_model(obs, done, cpu_model.initial_carry(obs.shape[1], "cpu"))[0]
+    err = (card_logits - cpu_logits).abs().max().item()
+    same_greedy = torch.equal(card_logits.argmax(-1), cpu_logits.argmax(-1))
+    ok = len(tape) == 300 and err <= TOOL_LOGIT_ATOL and same_greedy
+    emit("host_tools", tool="eval_pong", taped_steps=len(tape), slots=obs.shape[1],
+         logits_max_abs_err=err, atol=TOOL_LOGIT_ATOL, greedy_actions_equal=same_greedy,
+         card=smi, ok=ok)
+    check(ok, f"eval_pong's taped logits card vs CPU: {err}, greedy equal {same_greedy}")
+
+
+def host_loops_checks(smi: str, tmp: str):
+    import importlib.util
+    import os
+
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(tmp, "runs")
+    installed = {m: importlib.util.find_spec(m) is not None for m in ("gymnasium", "mujoco")}
+    emit("host_loops", installed=installed,
+         sub_env="the GymPool's gymnasium envs" if installed["gymnasium"] else
+         "gymnasium is absent: a stand-in sub-env (Pendulum-v1 in numpy, 200-step time limit) "
+         "behind GymPool", card=smi)
+    t0, seconds = time.perf_counter(), {}
+
+    def timed(step, *args):
+        t = time.perf_counter()
+        out = step(*args)
+        seconds[step.__name__] = time.perf_counter() - t
+        return out
+
+    timed(host_pool_checks, smi)
+    timed(host_chunk_checks, smi)
+    timed(host_loop_run, smi, tmp)
+    timed(host_ppo_run, smi, tmp)
+    timed(host_tools, smi, tmp)
+    emit("host_loops", seconds=time.perf_counter() - t0, by_step=seconds, card=smi)
+
+
+def phase_host_loops(smi: str, tmp: str):
+    """The gymnasium host bridge, the off-policy host loop and the two
+    evaluation tools, with a stand-in sub-env behind ``GymPool`` (the card's
+    machine has no gymnasium): (a) the pool's ``reset``/``step`` card vs CPU,
+    2 envs x 450 steps, truncations at 200 and 400; (b) ``chunk_fn`` of
+    SAC, TD3 and DDPG on one 64-step chunk card vs CPU in float64, and
+    equal bit for bit to the fused loop on the card; (c) SAC through
+    ``run_offpolicy_hostloop``, 2 envs, learning_starts 512, 2,304 steps
+    with a save at 2,048, and a resume from it for the last 256 held
+    against the unbroken run, the chunks timed, a 2-episode greedy
+    evaluation; (d) one ``ppo_continuous_action`` update on the stand-in
+    pool, its host round trip timed; (e) ``eval_rom_policy`` on RALLY, 8 x
+    256; (f) ``eval_pong`` against the tracker and noop, 4 x 300, the taped
+    logits card vs CPU.  Cuts: the tools run from a random agent the phase
+    saves (no training run of their own), 256 and 300 steps; the host
+    loop's 2,304 of SAC's 1,000,000 steps.  No kernel of the port lies on
+    these paths."""
+    restoring_flags(host_loops_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -3804,6 +4366,11 @@ def main() -> int:
         native_pools_launches = read_counts()
         check(not any(native_pools_launches.values()),
               f"the native_pools phase launched attention kernels: {native_pools_launches}")
+        reset_counts()
+        phase_host_loops(smi, tmp)
+        host_loops_launches = read_counts()
+        check(not any(host_loops_launches.values()),
+              f"the host_loops phase launched attention kernels: {host_loops_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -3832,6 +4399,8 @@ def main() -> int:
             "pong_door_launches": pong_door_launches[name],
             # the native pools in the fused loops, the two raw bridges
             "native_pools_launches": native_pools_launches[name],
+            # the gymnasium bridge, the off-policy host loop, the two tools
+            "host_loops_launches": host_loops_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

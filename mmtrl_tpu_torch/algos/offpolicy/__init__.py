@@ -2,8 +2,8 @@
 (``make_dqn`` with uniform or prioritized replay, ``make_c51``) and the
 continuous-control DDPG, TD3 and SAC (``make_ddpg``, ``make_td3``,
 ``make_sac``); DQN and C51 also through the host loop on the native
-cartridges (``hostloop_dqn``).  The gymnasium host loop is not ported yet
-(ROADMAP A.7)."""
+cartridges (``hostloop_dqn``), DDPG, TD3 and SAC through the host loop on
+gymnasium envs (``hostloop``, their ``chunk_fn``)."""
 
 from mmtrl_tpu_torch.algos.offpolicy.c51 import (
     C51Config,

@@ -6,7 +6,7 @@ replay, and the exploration schedule."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,22 +53,29 @@ class StepDraws(NamedTuple):
     sample_idx: Optional[torch.Tensor]
 
 
-def store_transition(env, runner: OffPolicyRunner, action: torch.Tensor) -> OffPolicyRunner:
-    """Step every env with ``action``, update the episode statistics and
-    store the transitions.  SB3's ``handle_timeout_termination`` (the
-    reference's replay path): a time-limit truncation is stored as not
+def step_env(env, runner: OffPolicyRunner, action: torch.Tensor
+             ) -> Tuple[OffPolicyRunner, Dict[str, torch.Tensor]]:
+    """Step every env with ``action`` and update the episode statistics:
+    the runner after the step (its global step and buffer as they were)
+    and the transitions to store.  SB3's ``handle_timeout_termination``
+    (the reference's replay path): a time-limit truncation is stored as not
     done, so the update bootstraps through it, with the true
     post-transition observation (``final_obs``, before the auto-reset)."""
     next_obs, env_state, reward, done, info = env.step(runner.env_state, action,
                                                         runner.generator)
     stats = runner.stats.update(reward, done)
     truncated = info.get("truncated", torch.zeros_like(done))
-    runner.buffer.add_batch(dict(
-        obs=runner.obs, action=action, reward=reward,
-        next_obs=info.get("final_obs", next_obs), done=(done & ~truncated).float(),
-    ), action.shape[0])
-    return dataclasses.replace(runner, env_state=env_state, obs=next_obs, stats=stats,
-                               global_step=runner.global_step + action.shape[0])
+    transition = dict(obs=runner.obs, action=action, reward=reward,
+                      next_obs=info.get("final_obs", next_obs), done=(done & ~truncated).float())
+    return dataclasses.replace(runner, env_state=env_state, obs=next_obs, stats=stats), transition
+
+
+def store_transition(env, runner: OffPolicyRunner, action: torch.Tensor) -> OffPolicyRunner:
+    """``step_env``, then the transitions stored and the global step
+    advanced."""
+    runner, transition = step_env(env, runner, action)
+    runner.buffer.add_batch(transition, action.shape[0])
+    return dataclasses.replace(runner, global_step=runner.global_step + action.shape[0])
 
 
 def linear_epsilon(start_e: float, end_e: float, duration: float, step: int) -> np.float32:

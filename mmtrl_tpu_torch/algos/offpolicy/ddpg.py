@@ -11,12 +11,16 @@ trained weights), its target copy and its ``optax.adam`` state, stepped by
 Python loop over ``steps_per_iteration`` env steps.  A step draws the
 exploring action's normals and a uniform action, both every step as JAX
 does; acts uniformly while the step count before the step is below
-``learning_starts``; stores the transition; and once the count after the
-step is past ``learning_starts`` samples a batch and runs the algorithm's
-update, whose cadences read ``global_step // num_envs``.  The global step
-is a host integer, so the cadences cost no copy from the device.  As in
-JAX, an iteration reports the LAST step's losses, 0 when that step did
-not train.
+``learning_starts``; steps the env; and ``insert_update``s: stores the
+transitions and, once the count after the step is past
+``learning_starts``, samples a batch and runs the algorithm's update,
+whose cadences read ``global_step // num_envs``.  The global step is a
+host integer, so the cadences cost no copy from the device.  As in JAX,
+an iteration reports the LAST step's losses, 0 when that step did not
+train.  The host loop (``hostloop.py``) steps its envs on the host and
+hands a chunk of transitions to ``chunk_fn``, which runs the same
+``insert_update`` step by step, so the two paths share their update code
+and cadence.
 
 DDPG's update: the critic's TD step against the targets, then, every
 ``policy_frequency`` steps, the actor's step on the critic after this
@@ -31,7 +35,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mmtrl_tpu_torch.algos.offpolicy.common import Metrics, OffPolicyRunner, store_transition
+from mmtrl_tpu_torch.algos.offpolicy.common import Metrics, OffPolicyRunner, step_env
 from mmtrl_tpu_torch.algos.offpolicy.dqn import (
     Batch,
     DQNTrainState,
@@ -113,11 +117,24 @@ class ActorCriticAlgo(NamedTuple):
     (runner, metrics)``, ``draws`` one ``ContinuousDraws`` a step replacing
     the generator's; ``update(state, batch, step_idx, draws=None,
     generator=None) -> (state, metrics)``, one training step's update on a
-    batch (the states' tensors may be float64)."""
+    batch (the states' tensors may be float64).  The host loop's parts
+    (JAX's ``AlgoParts`` extras): ``chunk_fn(runner, transitions,
+    draws=None) -> (runner, metrics)``, the transitions' tensors shaped
+    ``(chunk, num_envs, ...)`` on the runner's device and ``draws`` one
+    ``ContinuousDraws`` a step (its update fields); ``act_explore(actor,
+    obs, noise, space)`` and ``act_greedy(actor, obs, space)``, the
+    behaviour and evaluation actions of an actor module on ``space`` (an
+    ``ActionSpace`` on the module's device); ``actor_module(state)``, the
+    trained actor; ``space``, the env's action space."""
 
     init_runner: Callable[[torch.Generator], OffPolicyRunner]
     train_iteration: Callable[..., Tuple[OffPolicyRunner, Metrics]]
     update: Callable[..., Tuple[ActorCriticState, Metrics]]
+    chunk_fn: Callable[..., Tuple[OffPolicyRunner, Metrics]]
+    act_explore: Callable[..., torch.Tensor]
+    act_greedy: Callable[..., torch.Tensor]
+    actor_module: Callable[[ActorCriticState], nn.Module]
+    space: "ActionSpace"
 
 
 class ActionSpace(NamedTuple):
@@ -135,6 +152,9 @@ class ActionSpace(NamedTuple):
         low, high = (torch.as_tensor(b, dtype=torch.float32, device=env.device)
                      for b in (sp.low, sp.high))
         return cls(low, high, (high - low) / 2.0, (high + low) / 2.0, tuple(sp.shape))
+
+    def to(self, device) -> "ActionSpace":
+        return ActionSpace(*(t.to(device) for t in self[:4]), self.shape)
 
     def uniform(self, n: int, generator: torch.Generator) -> torch.Tensor:
         """(n, *shape) uniform in [low, high), as ``jax.random.uniform``
@@ -159,13 +179,15 @@ def bootstrap(gamma: float, batch: Batch, q_next: torch.Tensor) -> torch.Tensor:
 
 def make_actor_critic_loop(env: Environment, cfg, space: ActionSpace,
                            make_state: Callable[[], ActorCriticState], explore: Callable,
-                           update: Callable, zero_metrics: Callable[[ActorCriticState], Metrics]
+                           greedy: Callable, update: Callable,
+                           zero_metrics: Callable[[ActorCriticState], Metrics]
                            ) -> ActorCriticAlgo:
-    """The fused loop of DDPG, TD3 and SAC.  ``make_state()`` is the
-    initial train state; ``explore(state, obs, noise)`` the exploring
-    action; ``update(state, batch, step_idx, draws, generator) -> (state,
-    metrics)`` a training step's update; ``zero_metrics(state)`` the
-    metrics of a step that does not train."""
+    """The fused loop of DDPG, TD3 and SAC, and the host loop's chunk path.
+    ``make_state()`` is the initial train state; ``explore(actor, obs,
+    noise, space)`` the exploring action and ``greedy(actor, obs, space)``
+    the evaluation's; ``update(state, batch, step_idx, draws, generator) ->
+    (state, metrics)`` a training step's update; ``zero_metrics(state)``
+    the metrics of a step that does not train."""
     n = cfg.num_envs
 
     def init_runner(generator: torch.Generator) -> OffPolicyRunner:
@@ -179,25 +201,36 @@ def make_actor_critic_loop(env: Environment, cfg, space: ActionSpace,
             env_state=env_state, obs=obs, global_step=0,
             stats=EpisodeStatistics.create(n, device), generator=generator)
 
+    def insert_update(runner: OffPolicyRunner, transition: Dict[str, torch.Tensor],
+                      draws: Optional[ContinuousDraws] = None):
+        """Store one env step's ``num_envs`` transitions and, once more
+        than ``learning_starts`` are stored, sample a batch and run the
+        update: the half of a step that the fused loop and the chunk path
+        share (JAX's ``insert_update``)."""
+        runner.buffer.add_batch(transition, n)
+        gs = runner.global_step + n
+        ts = runner.train_state
+        if gs > cfg.learning_starts:
+            batch = runner.buffer.sample(runner.generator, cfg.batch_size,
+                                         None if draws is None else draws.sample_idx)
+            ts, metrics = update(ts, batch, gs // n, draws, runner.generator)
+        else:
+            metrics = zero_metrics(ts)
+        return dataclasses.replace(runner, train_state=ts, global_step=gs), metrics
+
     def step_fn(runner: OffPolicyRunner, draws: Optional[ContinuousDraws] = None):
         gen = runner.generator
         if draws is None:
             noise = torch.randn((n,) + space.shape, generator=gen, device=runner.obs.device)
             draws = ContinuousDraws(noise, space.uniform(n, gen))
-        ts = runner.train_state
         if runner.global_step < cfg.learning_starts:
             action = draws.random_action.to(runner.obs.device)
         else:
             with torch.no_grad():
-                action = explore(ts, runner.obs, draws.explore_noise.to(runner.obs.device))
-        runner = store_transition(env, runner, action)
-        gs = runner.global_step
-        if gs > cfg.learning_starts:
-            batch = runner.buffer.sample(gen, cfg.batch_size, draws.sample_idx)
-            ts, metrics = update(ts, batch, gs // n, draws, gen)
-        else:
-            metrics = zero_metrics(ts)
-        return dataclasses.replace(runner, train_state=ts), metrics
+                action = explore(runner.train_state.actor.model, runner.obs,
+                                 draws.explore_noise.to(runner.obs.device), space)
+        runner, transition = step_env(env, runner, action)
+        return insert_update(runner, transition, draws)
 
     def train_iteration(runner: OffPolicyRunner,
                         draws: Optional[Sequence[ContinuousDraws]] = None):
@@ -205,18 +238,35 @@ def make_actor_critic_loop(env: Environment, cfg, space: ActionSpace,
             runner, metrics = step_fn(runner, None if draws is None else draws[k])
         return runner, metrics
 
-    return ActorCriticAlgo(init_runner, train_iteration, update)
+    def chunk_fn(runner: OffPolicyRunner, transitions: Dict[str, torch.Tensor],
+                 draws: Optional[Sequence[ContinuousDraws]] = None):
+        """``insert_update`` of each step of a chunk of host transitions
+        (leaves ``(chunk, num_envs, ...)``), in order: JAX's scanned
+        ``chunk_fn``.  Returns the runner and the last step's metrics."""
+        steps = next(iter(transitions.values())).shape[0]
+        for t in range(steps):
+            runner, metrics = insert_update(runner, {k: v[t] for k, v in transitions.items()},
+                                            None if draws is None else draws[t])
+        return runner, metrics
+
+    return ActorCriticAlgo(init_runner, train_iteration, update, chunk_fn, explore, greedy,
+                           lambda ts: ts.actor.model, space)
 
 
-def noisy_explore(space: ActionSpace, exploration_noise: float) -> Callable:
+def noisy_explore(exploration_noise: float) -> Callable:
     """DDPG's and TD3's exploring action: the actor's, plus normals times
     ``exploration_noise`` times the action space's half-width, clipped."""
 
-    def explore(ts: ActorCriticState, obs: torch.Tensor, noise: torch.Tensor):
-        a_det = ts.actor.model(obs)
+    def explore(actor: nn.Module, obs: torch.Tensor, noise: torch.Tensor, space: ActionSpace):
+        a_det = actor(obs)
         return torch.clamp(a_det + noise * exploration_noise * space.scale, space.low, space.high)
 
     return explore
+
+
+def deterministic_greedy(actor: nn.Module, obs: torch.Tensor, space: ActionSpace) -> torch.Tensor:
+    """DDPG's and TD3's evaluation action: the actor's own."""
+    return actor(obs)
 
 
 def zeros_of(ts: ActorCriticState, *names: str) -> Metrics:
@@ -252,5 +302,5 @@ def make_ddpg(env: Environment, actor: nn.Module, critic: nn.Module,
         return ts, dict(zip(names, (c_loss, a_loss, q_mean)))
 
     return make_actor_critic_loop(env, cfg, space, make_state,
-                                  noisy_explore(space, cfg.exploration_noise), update,
-                                  lambda ts: zeros_of(ts, *names))
+                                  noisy_explore(cfg.exploration_noise), deterministic_greedy,
+                                  update, lambda ts: zeros_of(ts, *names))

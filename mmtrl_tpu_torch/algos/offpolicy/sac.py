@@ -83,13 +83,13 @@ def make_sac(env: Environment, actor: nn.Module, qf1: nn.Module, qf2: nn.Module,
             critics=(create_dqn_state(qf1, cfg.q_lr), create_dqn_state(qf2, cfg.q_lr)),
             log_alpha=log_alpha, alpha_opt_state=init_adam_state([log_alpha]))
 
-    def sample(actor_module, obs, generator, noise):
+    def sample(actor_module, obs, generator, noise, sp: ActionSpace = space):
         mean, log_std = actor_module(obs)
-        return squashed_normal_sample_log_prob(generator, mean, log_std, space.scale, space.bias,
+        return squashed_normal_sample_log_prob(generator, mean, log_std, sp.scale, sp.bias,
                                                noise=noise)[:2]
 
-    def explore(ts: ActorCriticState, obs: torch.Tensor, noise: torch.Tensor):
-        return sample(ts.actor.model, obs, None, noise)[0]
+    def explore(actor: nn.Module, obs: torch.Tensor, noise: torch.Tensor, sp: ActionSpace):
+        return sample(actor, obs, None, noise, sp)[0]
 
     def actor_and_alpha(ts: ActorCriticState, obs: torch.Tensor, generator, noise):
         alpha = torch.exp(ts.log_alpha)
@@ -131,4 +131,5 @@ def make_sac(env: Environment, actor: nn.Module, qf1: nn.Module, qf2: nn.Module,
     def zero_metrics(ts: ActorCriticState):
         return dict(zeros_of(ts, *names), **{"losses/alpha": torch.exp(ts.log_alpha)})
 
-    return make_actor_critic_loop(env, cfg, space, make_state, explore, update, zero_metrics)
+    return make_actor_critic_loop(env, cfg, space, make_state, explore, greedy_action, update,
+                                  zero_metrics)

@@ -19,6 +19,7 @@ from mmtrl_tpu_torch.algos.offpolicy.ddpg import (
     ActorCriticState,
     bootstrap,
     critic_step,
+    deterministic_greedy,
     make_actor_critic_loop,
     noisy_explore,
     zeros_of,
@@ -87,5 +88,5 @@ def make_td3(env: Environment, actor: nn.Module, qf1: nn.Module, qf2: nn.Module,
         return ts, dict(zip(names, (l1 + l2, a_loss, q_mean)))
 
     return make_actor_critic_loop(env, cfg, space, make_state,
-                                  noisy_explore(space, cfg.exploration_noise), update,
-                                  lambda ts: zeros_of(ts, *names))
+                                  noisy_explore(cfg.exploration_noise), deterministic_greedy,
+                                  update, lambda ts: zeros_of(ts, *names))

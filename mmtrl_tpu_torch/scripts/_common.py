@@ -18,8 +18,6 @@ from torch import nn
 
 from mmtrl_tpu_torch import resolve_device
 from mmtrl_tpu_torch.algos.ppo import PPOConfig
-from mmtrl_tpu_torch.envs.base import Environment
-from mmtrl_tpu_torch.envs.registry import make, registry
 
 
 def field(default, help="", **kw):  # noqa: A002
@@ -121,13 +119,3 @@ def seeded(seed: int, device: torch.device, build: Callable[[], nn.Module]) -> n
     with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
         return build()
-
-
-def make_registry_env(env_id: str, device: torch.device) -> Environment:
-    """The registry's env on ``device``.  The JAX scripts take any other id
-    through ``gym_bridge.make_any``, a pool of gymnasium envs on the host,
-    which is not ported: such an id raises."""
-    if env_id.lower() not in registry:
-        raise NotImplementedError(f"--env-id {env_id}: gymnasium host envs (JAX's "
-                                  "gym_bridge.make_any) are not ported yet (ROADMAP A.7)")
-    return make(env_id, device=device)

@@ -4,12 +4,18 @@ cleanrl/ppo_continuous_action.py; twin of ``scripts/ppo_continuous_action.py``.
 (64-64 tanh actor and critic, a state-independent log-std) on a registry
 env on the card, under the reference's wrapper stack: ``ClipAction``,
 ``NormalizeObservation`` and ``NormalizeReward`` (each a flag), per-env
-statistics.  Same CLI and defaults as the JAX script; an id outside the
-registry (JAX's gymnasium bridge) raises naming ROADMAP A.7.
+statistics.  Any other id (MuJoCo's HalfCheetah-v4, Hopper-v4, ...) runs
+``--num-envs`` gymnasium envs on the host (``envs/gym_bridge.py::GymPool``,
+which needs the gymnasium package) under gymnasium's own wrapper stack
+when ``--norm-obs`` or ``--norm-reward`` is set; each step then copies the
+action to the host and the results back.  Same CLI and defaults as the
+JAX script.
 
     python -m mmtrl_tpu_torch.scripts.ppo_continuous_action --env-id Pendulum-v1
     python -m mmtrl_tpu_torch.scripts.ppo_continuous_action --cuda False --num-envs 2 \\
         --num-steps 64 --num-minibatches 2 --update-epochs 2 --total-timesteps 256
+    python -m mmtrl_tpu_torch.scripts.ppo_continuous_action --cuda False --env-id HalfCheetah-v4 \\
+        --num-envs 2 --num-steps 64 --num-minibatches 2 --update-epochs 2 --total-timesteps 256
 """
 
 import dataclasses
@@ -17,13 +23,13 @@ import dataclasses
 from mmtrl_tpu_torch.algos.ppo import make_continuous_ppo
 from mmtrl_tpu_torch.algos.ppo.runner import run_training
 from mmtrl_tpu_torch.core.config import cli
+from mmtrl_tpu_torch.envs.gym_bridge import make_any
 from mmtrl_tpu_torch.envs.wrappers import ClipAction, NormalizeObservation, NormalizeReward
 from mmtrl_tpu_torch.models.agents import ContinuousActorCritic
 from mmtrl_tpu_torch.scripts._common import (
     BasePPOArgs,
     device_from,
     field,
-    make_registry_env,
     ppo_config_from,
     seeded,
 )
@@ -47,9 +53,17 @@ class Args(BasePPOArgs):
 
 
 def make_env(args, device):
-    """The registry env under the flags' wrapper stack, normalizers
-    outermost (cleanrl/ppo_continuous_action.py:90-94)."""
-    env = make_registry_env(args.env_id, device)
+    """A registry env under the flags' functional wrapper stack, normalizers
+    outermost (cleanrl/ppo_continuous_action.py:90-94); any other id a
+    ``GymPool`` of ``--num-envs`` host envs seeded from ``--seed``, each
+    under gymnasium's reference stack when a normalizer flag is set (JAX's
+    ``scripts/ppo_continuous_action.py:43-59``)."""
+    env, is_bridge = make_any(
+        args.env_id, num_envs=args.num_envs, seed=args.seed,
+        wrap="ppo_continuous" if (args.norm_obs or args.norm_reward) else "none",
+        gamma=args.gamma, device=device)
+    if is_bridge:
+        return env
     if args.clip_action:
         env = ClipAction(env)
     if args.norm_obs:

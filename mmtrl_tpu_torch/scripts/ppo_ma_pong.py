@@ -48,7 +48,7 @@ class Args(BasePPOArgs):
         0.0, "ALE-v5 sticky actions per slot (reference envpool setting: 0.25)")
     eval_steps: int = field(
         0, "greedy self-play eval env-steps after training (0: skip; match evals against "
-        "fixed opponents are the JAX package's tools/eval_pong.py)")
+        "fixed opponents: python -m mmtrl_tpu_torch.tools.eval_pong)")
 
 
 def main(args=None):

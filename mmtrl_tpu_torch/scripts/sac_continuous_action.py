@@ -3,25 +3,25 @@
 (``algos/offpolicy/sac.py::make_sac``) with the 256-256 ReLU
 ``SquashedGaussianActor`` and two ``QFunction``s on the card, alpha
 autotuned, and a greedy evaluation (``tanh(mean)`` scaled to the action
-space).  Same CLI and defaults as the JAX script; ``--host-loop`` and ids
-outside the registry raise naming ROADMAP A.7, ``--track`` and
-``--capture-video`` naming A.9.
+space).  Same CLI and defaults as the JAX script; ``--host-loop`` and the
+gymnasium ids as in ``ddpg_continuous_action``; ``--track`` and
+``--capture-video`` raise naming ROADMAP A.9.
 
     python -m mmtrl_tpu_torch.scripts.sac_continuous_action --env-id Pendulum-v1
     python -m mmtrl_tpu_torch.scripts.sac_continuous_action --cuda False \\
         --total-timesteps 2048 --learning-starts 512 --batch-size 64
+    python -m mmtrl_tpu_torch.scripts.sac_continuous_action --cuda False --host-loop \\
+        --env-id HalfCheetah-v4 --total-timesteps 2048 --learning-starts 512 --batch-size 64
 """
 
 import dataclasses
 from typing import Optional
 
-from mmtrl_tpu_torch.algos.offpolicy.ddpg import ActionSpace
-from mmtrl_tpu_torch.algos.offpolicy.runner import run_offpolicy
-from mmtrl_tpu_torch.algos.offpolicy.sac import SACConfig, greedy_action, make_sac
+from mmtrl_tpu_torch.algos.offpolicy.sac import SACConfig, make_sac
 from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.models.agents import SquashedGaussianActor
 from mmtrl_tpu_torch.scripts import ddpg_continuous_action as ddpg
-from mmtrl_tpu_torch.scripts._common import config_of, field, seeded
+from mmtrl_tpu_torch.scripts._common import field, seeded
 
 
 @dataclasses.dataclass
@@ -54,27 +54,24 @@ class Args:
     save_interval: int = field(0, "save every n iterations (0: never)")
     save_dir: str = field("saved_agents", "checkpoint folder")
     load_from: str = field("", "checkpoint path from which to resume the run")
-    host_loop: bool = field(False, "step gymnasium envs on the host (not ported yet: raises)")
+    host_loop: bool = field(False, "step gymnasium envs on the host, updates on the card")
     chunk_size: int = field(64, "host-loop transitions per device dispatch")
 
 
-def build(args):
-    """(algorithm, run config, device, env) of a run; the actor's and
-    critics' parameters are initialised from ``--seed``."""
-    env, device = ddpg.env_and_device(args)
-    cfg = config_of(SACConfig, args)
+def networks(args, env, device):
+    """(actor, critics) of a run, initialised from ``--seed``."""
     actor = seeded(args.seed, device, lambda: SquashedGaussianActor(
         env.observation_space.shape[0], env.action_space.shape[0], device=device))
-    qf1, qf2 = (ddpg.q_function(args.seed + k, env, device) for k in (1, 2))
-    return make_sac(env, actor, qf1, qf2, cfg), cfg, device, env
+    return actor, [ddpg.q_function(args.seed + k, env, device) for k in (1, 2)]
+
+
+def build(args):
+    """(algorithm, run config, device, env) of a fused run."""
+    return ddpg.build(args, make_sac, SACConfig, networks)
 
 
 def main(args=None):
-    args = args or cli(Args)
-    algo, cfg, device, env = build(args)
-    space = ActionSpace.of(env)
-    return run_offpolicy(algo, cfg, args, device, eval_setup=(
-        env, lambda actor, obs: greedy_action(actor, obs, space), lambda ts: ts.actor.model))
+    return ddpg.run(args or cli(Args), make_sac, SACConfig, networks)
 
 
 if __name__ == "__main__":

@@ -52,6 +52,9 @@ CLASSIC_MODULES = [
     # the native pools in the fused loops, and the two raw bridges
     "envs/skeleton_native.py", "utils/evaluate.py", "envs/native_bridge.py",
     "envs/atari_bridge.py",
+    # the gymnasium bridge, the off-policy host loop and the evaluation tools
+    "envs/gym_bridge.py", "algos/offpolicy/hostloop.py", "tools/__init__.py",
+    "tools/eval_pong.py", "tools/eval_rom_policy.py",
 ]
 
 
@@ -59,7 +62,8 @@ CLASSIC_MODULES = [
 def test_classic_modules_are_scanned(name):
     """The later slices' modules (classic control, discrete and continuous;
     procmaze and the two-agent env; Doorpuzzle and the two-player Pong; the
-    native pools' fused surface and the two raw bridges) are
+    native pools' fused surface and the two raw bridges; the gymnasium
+    bridge, the off-policy host loop and the tools) are
     among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 

@@ -135,10 +135,11 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
     (dqn_rom, ["--cuda", "False", "--env-id", "skeleton_plus_native"], FileNotFoundError,
      "SkelPlus.bin"),
     # was skeleton_plus_ppo --backend native, which now runs the fused loop
-    # (its missing-ROM case is the last one): moved to a branch that still
-    # raises naming A.7
-    (td3_continuous_action, ["--cuda", "False", "--env-id", "Humanoid-v4"], NotImplementedError,
-     "ROADMAP A.7"),
+    # (its missing-ROM case is the last one), then td3 on a gymnasium id,
+    # which now runs on the host bridge: moved to that branch with a flag
+    # that still raises, naming A.9
+    (td3_continuous_action, ["--cuda", "False", "--env-id", "Humanoid-v4", "--track"],
+     NotImplementedError, "ROADMAP A.9"),
     (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native", "--host-loop"],
      FileNotFoundError, "SkelPlus.bin"),
     (dt_rom, ["--cuda", "False", "--max-timestep", "2048"], FileNotFoundError, "SkelPlus.bin"),

@@ -200,13 +200,15 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 
 # Cases 0 and 3 were skeleton_plus_ppo --backend native and evaluate --env-id
-# skeleton_plus_native, which now run (the native pool's reset/step); each
-# moved, at its index, to a branch that still raises naming A.7.
+# skeleton_plus_native, which run since the native pools' reset/step, then
+# ddpg --host-loop and ppo_continuous_action on a gymnasium id, which run
+# since the gymnasium bridge and the host loop: each moved, at its index,
+# to the same branch with a flag that still raises, naming A.9.
 @pytest.mark.parametrize("module,argv,item", [
-    (ddpg_continuous_action, ["--host-loop"], "A.7"),
+    (ddpg_continuous_action, ["--host-loop", "--track"], "A.9"),
     (minecraft_cnn, ["--capture-video"], "A.9"),
     (dqn_rom, ["--track"], "A.9"),
-    (ppo_continuous_action, ["--env-id", "Swimmer-v4"], "A.7"),
+    (ppo_continuous_action, ["--env-id", "Swimmer-v4", "--capture-video"], "A.9"),
 ])
 def test_unported_branches_name_their_roadmap_item(module, argv, item, in_tmp):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
