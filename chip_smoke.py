@@ -179,7 +179,19 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 and ``tools.eval_pong`` against the tracker and noop, the
                 taped logits card vs CPU within 1e-5.  No kernel lies on
                 these paths: zero launches.
-18. timing   -- each kernel, its plain version and the PyTorch call that
+18. run_tools -- the run tooling, in a working directory of its own:
+                ``train --attn-type casl`` at the repo's width, 2 updates with
+                ``--track --capture-video --save-interval 1`` (the
+                ``wandb_local`` run against the event file, the run journal's
+                two records, three GIFs walked without PIL);
+                ``record_episode`` card vs CPU from the same weights and
+                draws (frames equal up to the first greedy flip, ``write_gif``
+                byte-equal); ``dqn --track`` on CartPole-v1; two in-process
+                tuner trials of ``ppo`` on CartPole-v1, each metric equal to
+                the trial's last logged value, peak memory after each;
+                ``PhaseTimer`` against CUDA events.  No kernel lies on these
+                paths: zero launches.
+19. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -4265,6 +4277,270 @@ def phase_host_loops(smi: str, tmp: str):
     restoring_flags(host_loops_checks, smi, tmp)
 
 
+# The run tooling (ROADMAP A.9): the --track journal, --capture-video GIFs,
+# the run journal, the tuner and the phase timer, on the card.  No kernel of
+# the port lies on these paths.  The phase works in a directory of its own:
+# the runners write runs_manifest.jsonl, wandb_local/ and videos/ where they
+# run.
+TOOLS_TRAIN_ARGS = ["--attn-type", "casl", "--total-timesteps", "256", "--track",
+                    "--capture-video", "--save-interval", "1"]  # 2 updates of 1 env x 128
+TOOLS_GIFS = ("update_1.gif", "update_2.gif", "final.gif")
+TOOLS_VIDEO_STEPS = 256  # capture_video's episode
+TOOLS_GIF_SIZE = (168, 168)
+TOOLS_DQN_ARGS = ["--env-id", "CartPole-v1", "--total-timesteps", "1024",
+                  "--learning-starts", "512", "--track"]
+TOOLS_TRIALS = 2  # tuner trials of one seed of ppo on CartPole-v1, 2 updates each
+TOOLS_TUNER_STEPS = 1024
+TOOLS_TIMED_ITERS = 2  # rollout + update pairs under the phase timer
+
+
+def journal_checks(smi: str, run_name: str, track: bool, gifs=()) -> dict:
+    """The run's two manifest records ("running", "finished"); with
+    ``track`` its ``wandb_local`` run finished, one history row per scalar
+    of its event file (read by ``read_scalars``, no TensorBoard), each row's
+    value the event's (float32) at its step, and the summary of the rows'
+    keys; each GIF of ``gifs`` walked by ``read_gif_header`` (no PIL)."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from mmtrl_tpu_torch.core.metrics import read_scalars
+    from mmtrl_tpu_torch.utils.video import read_gif_header
+
+    with open("runs_manifest.jsonl") as f:
+        statuses = [json.loads(line)["status"] for line in f
+                    if json.loads(line)["run_name"] == run_name]
+    scalars = read_scalars(os.path.join(os.environ["MMTRL_RUN_ROOT"], run_name))
+    n_scalars = sum(len(steps) for steps, _ in scalars.values())
+    out = {"run_name": run_name, "manifest": statuses, "scalars": n_scalars}
+    ok = statuses == ["running", "finished"]
+    if track:
+        (run_dir,) = glob.glob(os.path.join("wandb_local", "*", run_name))
+        with open(os.path.join(run_dir, "wandb-metadata.json")) as f:
+            state = json.load(f)["state"]
+        with open(os.path.join(run_dir, "history.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        same = all(
+            [(r["_step"], np.float32(r[tag])) for r in rows if tag in r]
+            == [(int(a), np.float32(b)) for a, b in zip(*scalars[tag])] for tag in scalars)
+        out.update(state=state, history_rows=len(rows), history_equals_events=same)
+        ok &= (state == "finished" and len(rows) == n_scalars > 0 and same
+               and set(summary) == set().union(*rows))
+    for name in gifs:
+        info = read_gif_header(os.path.join("videos", run_name, name))
+        out[name] = {k: info[k] for k in ("width", "height", "frames", "loop")}
+        ok &= (info["frames"] >= 1 and info["loop"] == 0 and None not in info["delays_ms"]
+               and (info["width"], info["height"]) == TOOLS_GIF_SIZE)
+    if gifs:
+        ok &= sorted(os.listdir(os.path.join("videos", run_name))) == sorted(gifs)
+    emit("run_tools", journal=out, card=smi, ok=ok)
+    check(ok, f"the run journal of {run_name}: {out}")
+    return out
+
+
+def tools_record_checks(smi: str, args, model):
+    """``record_episode`` of the trained casl agent, 256 greedy steps of
+    Minecraft2d, on the card and from the same weights on the CPU, the
+    card's resets replaying the CPU's draws: the frames equal up to the
+    first greedy action that flips on float rounding (C.13), the step
+    reported, and ``write_gif`` byte-equal over those frames."""
+    import os
+
+    import numpy as np
+
+    from mmtrl_tpu_torch.envs.minecraft2d import Minecraft2d
+    from mmtrl_tpu_torch.scripts.train import make_agent, recurrent_video_policy
+    from mmtrl_tpu_torch.utils.video import obs_to_frames, record_episode, write_gif
+
+    cpu_env, card_env, _ = taped_pair(Minecraft2d)
+    cpu_model = make_agent(args, card_env.num_actions, torch.device("cpu"))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    actions = {"cpu": [], "card": []}
+
+    def taped(side):
+        def policy(m, obs, done, carry, generator):
+            action, carry = recurrent_video_policy(m, obs, done, carry, generator)
+            actions[side].append(action)
+            return action, carry
+        return policy
+
+    seed = SEED + 777
+    t0 = time.perf_counter()
+    cpu_traj = record_episode(cpu_env, taped("cpu"), cpu_model, torch.Generator().manual_seed(seed),
+                              TOOLS_VIDEO_STEPS, cpu_model.initial_carry(1))
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_traj = record_episode(card_env, taped("card"), model,
+                               torch.Generator(device="cuda").manual_seed(seed),
+                               TOOLS_VIDEO_STEPS, model.initial_carry(1))
+    card_s = time.perf_counter() - t0  # the copy to the host ends it
+    flips = torch.nonzero(torch.stack(actions["card"]).cpu() != torch.stack(actions["cpu"]))
+    first_flip = int(flips[0, 0]) if len(flips) else None
+    upto = TOOLS_VIDEO_STEPS if first_flip is None else first_flip + 1
+    card_frames, cpu_frames = obs_to_frames(card_traj[:upto]), obs_to_frames(cpu_traj[:upto])
+    t0 = time.perf_counter()
+    card_gif = write_gif(card_frames, os.path.join("record", "card.gif"))
+    gif_s = time.perf_counter() - t0
+    cpu_gif = write_gif(cpu_frames, os.path.join("record", "cpu.gif"))
+    with open(card_gif, "rb") as a, open(cpu_gif, "rb") as b:
+        gif_equal = a.read() == b.read()
+    frames_equal = np.array_equal(card_frames, cpu_frames)
+    ok = frames_equal and gif_equal
+    emit("run_tools", record_episode="minecraft, big casl, greedy", steps=TOOLS_VIDEO_STEPS,
+         first_greedy_flip=first_flip, frames_compared=upto, frames_equal=frames_equal,
+         obs_max_abs_err=float(np.abs(card_traj[:upto] - cpu_traj[:upto]).max()),
+         distinct_frames=len({f.tobytes() for f in card_frames}), gif_bytes_equal=gif_equal,
+         card_record_s=card_s, cpu_record_s=cpu_s, write_gif_s=gif_s,
+         gif_bytes=os.path.getsize(card_gif), card=smi, ok=ok)
+    check(ok, f"record_episode card vs CPU: frames {frames_equal}, GIF bytes {gif_equal}")
+
+
+def tools_phase_timer(smi: str, args, runner):
+    """``PhaseTimer`` around ``TOOLS_TIMED_ITERS`` rollouts and updates of
+    the trained run, each phase also bracketed by CUDA events: the timer's
+    wall (the phase, then its device's synchronize) holds the events' time."""
+    from mmtrl_tpu_torch.algos.ppo import make_recurrent_ppo
+    from mmtrl_tpu_torch.envs import make
+    from mmtrl_tpu_torch.scripts._common import ppo_config_from
+    from mmtrl_tpu_torch.utils.profiling import PhaseTimer
+
+    algo = make_recurrent_ppo(make(args.env_id, device="cuda"), runner.model,
+                              ppo_config_from(args))
+    timer, events, rs = PhaseTimer(), {"rollout": 0.0, "update": 0.0}, runner
+    for _ in range(TOOLS_TIMED_ITERS):
+        carry = rs.carry
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        with timer.phase("rollout", block_on=rs.obs):
+            rs, data = algo.rollout(rs)
+        marks[1].record()
+        with timer.phase("update", block_on=rs.obs):
+            rs, metrics = algo.update_from_rollout(rs, carry, data)
+        marks[2].record()
+        torch.cuda.synchronize()
+        events["rollout"] += marks[0].elapsed_time(marks[1])
+        events["update"] += marks[1].elapsed_time(marks[2])
+    timer_ms = timer.averages()
+    event_ms = {f"profile/{k}_ms": v / TOOLS_TIMED_ITERS for k, v in events.items()}
+    ok = all(0 < event_ms[k] <= timer_ms[k] * 1.01 + 0.5 for k in event_ms) and all(
+        math.isfinite(float(v)) for v in metrics.values())
+    emit("run_tools", phase_timer=timer_ms, cuda_events=event_ms, iterations=TOOLS_TIMED_ITERS,
+         card=smi, ok=ok)
+    check(ok, f"PhaseTimer {timer_ms} against CUDA events {event_ms}")
+
+
+def tools_tuner(smi: str):
+    """Two tuner trials of one seed of ``ppo`` on CartPole-v1, in-process
+    on the card under ``runs_tuner/``: each trial's metric (the last point,
+    window 1) equal to the last value that trial logged, read back from its
+    event file; the peak CUDA memory after each trial."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from mmtrl_tpu_torch.scripts import ppo
+    from mmtrl_tpu_torch.utils import wandb_local
+    from mmtrl_tpu_torch.utils.tuner import Tuner
+
+    trials = []
+
+    class MeteredTuner(Tuner):
+        def _run_script(self, argv):
+            # a run's name ends in its start's whole second: two trials in
+            # one second would share a run directory
+            time.sleep(1.0 - time.time() % 1.0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            value = super()._run_script(argv + ["--track"])
+            trials.append({"metric": value, "wall_s": time.perf_counter() - t0,
+                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "held_gb": torch.cuda.memory_allocated() / 1e9})
+            emit("run_tools", tuner_trial=len(trials) - 1, argv=argv, card=smi, **trials[-1])
+            return value
+
+    tuner = MeteredTuner(
+        script=ppo.__file__, metric="charts/episodic_return", metric_last_n_average_window=1,
+        target_scores={"CartPole-v1": None}, storage="hpopt.log", study_name="chip_smoke",
+        params_fn=lambda trial: {
+            "learning-rate": trial.suggest_float("learning-rate", 1e-4, 1e-3, log=True),
+            "total-timesteps": TOOLS_TUNER_STEPS})
+    results = tuner.tune(num_trials=TOOLS_TRIALS, num_seeds=1)
+    runs = sorted(glob.glob(os.path.join("runs_tuner", "chip_smoke", "*")), key=os.path.getmtime)
+    logged = []
+    for run_dir in runs:
+        steps, series = wandb_local.load_history(
+            glob.glob(os.path.join("wandb_local", "*", os.path.basename(run_dir)))[0])
+        values = series["charts/episodic_return"]
+        logged.append(float(np.float32(values[~np.isnan(values)][-1])))
+    ok = (len(runs) == len(results) == TOOLS_TRIALS
+          and [r["score"] for r in results] == [t["metric"] for t in trials] == logged)
+    emit("run_tools", tuner_scores=[r["score"] for r in results], last_logged=logged,
+         params=[r["params"] for r in results], card=smi, ok=ok)
+    check(ok, f"the tuner's metrics {[t['metric'] for t in trials]} against the logged {logged}")
+
+
+def run_tools_checks(smi: str, tmp: str):
+    import os
+
+    from mmtrl_tpu_torch.core.config import cli
+    from mmtrl_tpu_torch.scripts import dqn, train
+
+    work = os.path.join(tmp, "run_tools")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    os.environ["MMTRL_RUN_ROOT"] = os.path.join(work, "runs")
+    t_phase, seconds = time.perf_counter(), {}
+    try:
+        t0 = time.perf_counter()
+        args = cli(train.Args, TOOLS_TRAIN_ARGS)
+        out = train.main(args)
+        seconds["train"] = time.perf_counter() - t0
+        emit("run_tools", run="train", args=TOOLS_TRAIN_ARGS, wall_s=seconds["train"],
+             update_walls_s=[r["wall_s"] for r in out["history"]], videos=out["videos"], card=smi)
+        journal_checks(smi, out["run_name"], track=True, gifs=TOOLS_GIFS)
+        t0 = time.perf_counter()
+        tools_record_checks(smi, args, out["runner"].model)
+        seconds["record"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_phase_timer(smi, args, out["runner"])
+        seconds["phase_timer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q = dqn.main(cli(dqn.Args, TOOLS_DQN_ARGS))
+        seconds["dqn"] = time.perf_counter() - t0
+        journal_checks(smi, q["run_name"], track=True)
+        check(not os.path.exists(os.path.join("videos", q["run_name"])), "dqn wrote a video")
+        t0 = time.perf_counter()
+        tools_tuner(smi)
+        seconds["tuner"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    emit("run_tools", seconds=time.perf_counter() - t_phase, by_step=seconds, card=smi)
+
+
+def phase_run_tools(smi: str, tmp: str):
+    """The run tooling on the card, in its own working directory: (a)
+    ``train --attn-type casl`` at the repo's width (1 env x 128, big
+    towers), 2 updates with ``--track --capture-video --save-interval 1``:
+    the ``wandb_local`` run (a history row per logged scalar, equal to the
+    event file's, the summary, state "finished"), the two manifest records,
+    ``update_1.gif``, ``update_2.gif`` and ``final.gif`` by the port's own
+    header walk; ``record_episode`` card vs CPU from the same weights and
+    draws, frames equal up to the first greedy flip, ``write_gif``
+    byte-equal; (b) ``dqn --track`` on CartPole-v1 cut to 1,024 steps (of
+    500,000), the off-policy runner's mirror and journal, no video; (c) two
+    tuner trials of ``ppo`` on CartPole-v1 cut to 1,024 steps, in-process,
+    each metric equal to the trial's last logged value, the peak CUDA
+    memory after each; (d) ``PhaseTimer`` around (a)'s rollout and update
+    against CUDA events.  No kernel of the port lies on these paths."""
+    restoring_flags(run_tools_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -4371,6 +4647,11 @@ def main() -> int:
         host_loops_launches = read_counts()
         check(not any(host_loops_launches.values()),
               f"the host_loops phase launched attention kernels: {host_loops_launches}")
+        reset_counts()
+        phase_run_tools(smi, tmp)
+        run_tools_launches = read_counts()
+        check(not any(run_tools_launches.values()),
+              f"the run_tools phase launched attention kernels: {run_tools_launches}")
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -4401,6 +4682,8 @@ def main() -> int:
             "native_pools_launches": native_pools_launches[name],
             # the gymnasium bridge, the off-policy host loop, the two tools
             "host_loops_launches": host_loops_launches[name],
+            # the run tooling: journal, wandb_local, GIFs, tuner, phase timer
+            "run_tools_launches": run_tools_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

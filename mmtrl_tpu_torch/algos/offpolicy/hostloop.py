@@ -25,15 +25,17 @@ fetched from the card once a chunk; the warmup's uniform actions
 A resume (``--load-from``) restores the whole runner: networks, Adam
 states, replay buffer, global step and generator.  The host envs restart
 from their seeds and the warmup and exploration streams from theirs, as
-in JAX.  Not ported: the JAX loop's run journal
-(``utils/resume.journal_run``), and ``--track`` and ``--capture-video``
-(ROADMAP A.9; both raise).
+in JAX.  The run journals "running" and "finished" to
+``runs_manifest.jsonl`` (``utils/resume.py``) as the JAX loop does;
+``--track`` mirrors the metrics to ``wandb_local/``, and
+``--capture-video`` is accepted and ignored, as in JAX.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import sys
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -46,6 +48,7 @@ from mmtrl_tpu_torch.algos.offpolicy.ddpg import ContinuousDraws
 from mmtrl_tpu_torch.algos.offpolicy.runner import EVAL_SEED_OFFSET
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
+from mmtrl_tpu_torch.utils.resume import journal_run
 
 
 class SpecEnv:
@@ -113,12 +116,9 @@ def run_offpolicy_hostloop(factory, pool, actor_model: nn.Module,
     return, episodes, each chunk's (host seconds: envs and behaviour
     actions; card seconds: the copy to the card, ``chunk_fn`` and the
     parameters' fetch), and the evaluation's return."""
-    for flag in ("track", "capture_video"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
     run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
+    journal_run(run_name, sys.argv, "running")
 
     n = cfg.num_envs
     chunk = int(getattr(args, "chunk_size", 64))
@@ -222,6 +222,7 @@ def run_offpolicy_hostloop(factory, pool, actor_model: nn.Module,
     writer.scalar("eval/episodic_return", ev, gs)
     print(f"final greedy eval: return={ev:.2f} over {eval_episodes} episodes")
     result["eval_episodic_return"] = ev
+    journal_run(run_name, sys.argv, "finished")
     writer.close()
     pool.close()
     return result

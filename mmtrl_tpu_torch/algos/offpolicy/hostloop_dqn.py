@@ -26,14 +26,17 @@ The value-learning algorithm is pluggable: ``greedy_fn(model, obs) ->
 actions`` and ``update_fn(ts, batch) -> (ts, loss, q_mean)`` default to
 DQN's argmax-Q and ``dqn_td_update``; ``scripts/c51_rom.py`` passes C51's.
 A resume (``--load-from``) restores the parameters, the target and the
-Adam state; the replay ring restarts cold at ``global_step`` 0.  The JAX
-loop's run journal (``utils/resume.journal_run``, ROADMAP A.9) is not
-ported.
+Adam state; the replay ring restarts cold at ``global_step`` 0.  The run
+journals "running" and "finished" to ``runs_manifest.jsonl``
+(``utils/resume.py``) as the JAX loop does; ``--track`` mirrors the metrics
+to ``wandb_local/``, and ``--capture-video`` is accepted and ignored, as
+in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -55,6 +58,7 @@ from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.data.buffers import ReplayBuffer
 from mmtrl_tpu_torch.data.quant import dequant_obs_i8, quant_obs_i8
+from mmtrl_tpu_torch.utils.resume import journal_run
 
 GreedyFn = Callable[[nn.Module, torch.Tensor], torch.Tensor]
 UpdateFn = Callable[[DQNTrainState, Dict[str, torch.Tensor]],
@@ -164,12 +168,9 @@ def run_dqn_hostloop(env, model: nn.Module, cfg: DQNConfig, args, device: torch.
     the final runner, transitions, pool steps, updates, target syncs, the
     training wall and the emulator's share, the last update's TD loss and
     mean Q, and the evaluation's statistics."""
-    for flag in ("track", "capture_video"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
     run_name = run_name or f"{env.name}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
+    journal_run(run_name, sys.argv, "running")
     n = env.num_envs
     loop = make_dqn_hostloop(env, model, cfg, greedy_fn, update_fn, adam_eps)
     runner = loop.init_runner(torch.Generator(device=device).manual_seed(args.seed))
@@ -258,5 +259,6 @@ def run_dqn_hostloop(env, model: nn.Module, cfg: DQNConfig, args, device: torch.
             writer.scalar("eval/episodic_return", result["eval_episodic_return"], gs)
             print(f"final greedy eval: return={result['eval_episodic_return']:.2f} "
                   f"score={result['eval_score']:.2f} over {len(ev_rets)} episodes")
+    journal_run(run_name, sys.argv, "finished")
     writer.close()
     return result

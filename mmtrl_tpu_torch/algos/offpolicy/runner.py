@@ -8,14 +8,16 @@ periodic checkpoints of the whole runner (``--save-interval``,
 ``--save-dir``) and ``--load-from``, and a final greedy evaluation
 (``utils/evaluate.py::evaluate_actions``, 16 envs x 1,000 steps).  The
 resumed run takes its iteration counter from the runner's global step,
-``global_step // (total_timesteps // num_iterations) + 1``.  Not ported:
-``--track`` and ``--capture-video`` (ROADMAP A.9; both raise) and the JAX
-runner's run journal (``utils/resume.journal_run``, which appends to the
-tracked ``runs_manifest.jsonl``).
+``global_step // (total_timesteps // num_iterations) + 1``.  The run
+journals "running" and "finished" to ``runs_manifest.jsonl``
+(``utils/resume.py``) as the JAX runner does; ``--track`` mirrors the
+metrics to ``wandb_local/``, and ``--capture-video`` is accepted and
+ignored, as in JAX.
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -25,6 +27,7 @@ from torch import nn
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.utils.evaluate import evaluate_actions
+from mmtrl_tpu_torch.utils.resume import journal_run
 
 EVAL_SEED_OFFSET = 10_000  # the evaluation's generator: seed + 10,000, as in JAX
 
@@ -41,12 +44,9 @@ def run_offpolicy(algo: Any, cfg: Any, args, device: torch.device,
     iteration run, the global step, the last logged return, the final
     runner, one row per logged iteration (wall seconds, SPS, the metrics,
     peak device memory) and, with ``eval_setup``, the greedy evaluation."""
-    for flag in ("track", "capture_video"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
     run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
+    journal_run(run_name, sys.argv, "running")
     runner = algo.init_runner(torch.Generator(device=device).manual_seed(args.seed))
     initial_it = 1
     if getattr(args, "load_from", ""):
@@ -106,5 +106,6 @@ def run_offpolicy(algo: Any, cfg: Any, args, device: torch.device,
               f"over {ev['eval/episodes']:.0f} episodes")
         result["eval_episodic_return"] = ev["eval/episodic_return"]
         result["eval_episodes"] = ev["eval/episodes"]
+    journal_run(run_name, sys.argv, "finished")
     writer.close()
     return result

@@ -384,12 +384,13 @@ def gaussian_head(rpo_alpha: float = 0.0,
 class FeedforwardPPO:
     """The functions of ``make_ppo`` and ``make_continuous_ppo``, by name;
     ``rollout`` is the first half of ``train_iteration``,
-    ``update_from_rollout`` the second."""
+    ``update_from_rollout`` the second; ``env`` the env they step."""
 
     init_runner: Callable[[torch.Generator], RunnerState]
     rollout: Callable[[RunnerState], Tuple[RunnerState, Rollout]]
     train_iteration: Callable[[RunnerState], Tuple[RunnerState, Metrics]]
     update_from_rollout: Callable[..., Tuple[RunnerState, Metrics]]
+    env: Environment
 
 
 def init_feedforward_runner(env: Environment, model: nn.Module, num_envs: int,
@@ -489,6 +490,7 @@ def _feedforward_ppo(env: Environment, model: nn.Module, cfg: PPOConfig,
         rollout=lambda rs: feedforward_rollout(env, cfg, rs, head_of()),
         train_iteration=train_iteration,
         update_from_rollout=update_from_rollout,
+        env=env,
     )
 
 

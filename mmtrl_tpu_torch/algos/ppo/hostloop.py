@@ -17,13 +17,16 @@ runner's payload (``core/checkpoint.py``); ``--load-from`` restores it and
 resumes at the update after the saved one, with the pool freshly reset, as
 the JAX loop does.  The step's reward is the env's ``_reward``, already
 host numpy (the JAX loop mirrors its jnp ``_reward`` in
-``_shaped_reward_np``).  The JAX loop's run journal
-(``utils/resume.journal_run``, ROADMAP A.9) is not ported.
+``_shaped_reward_np``).  The run journals "running" and "finished" to
+``runs_manifest.jsonl`` (``utils/resume.py``) as the JAX loop does;
+``--track`` mirrors the metrics to ``wandb_local/``, and
+``--capture-video`` is accepted and ignored, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Dict, Optional
 
@@ -33,6 +36,7 @@ import torch
 from mmtrl_tpu_torch.algos.ppo.core import PPOConfig, _maybe_clip, make_recurrent_ppo
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
+from mmtrl_tpu_torch.utils.resume import journal_run
 from mmtrl_tpu_torch.algos.hostpool import HostPool, slot_count
 
 
@@ -63,12 +67,9 @@ def run_recurrent_ppo_hostloop(env, model, cfg: PPOConfig, args, device: torch.d
     many greedy pool steps.  Returns a summary with the final runner, one
     row per update (wall, rollout and update seconds, emulator seconds,
     SPS, metrics) and the evaluation's statistics."""
-    for flag in ("track", "capture_video"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
     run_name = run_name or f"{env.name}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
+    journal_run(run_name, sys.argv, "running")
     n, t_len = cfg.num_envs, cfg.num_steps
     if slot_count(env) != n:
         raise ValueError(f"the pool steps {slot_count(env)} rows (envs or agent slots), "
@@ -161,6 +162,7 @@ def run_recurrent_ppo_hostloop(env, model, cfg: PPOConfig, args, device: torch.d
             writer.scalar("eval/episodic_return", result["eval_episodic_return"], gs)
             print(f"final greedy eval: return={result['eval_episodic_return']:.2f} "
                   f"kills={result['eval_kills']:.2f} over {result['eval_episodes']} episodes")
+    journal_run(run_name, sys.argv, "finished")
     writer.close()
     return result
 

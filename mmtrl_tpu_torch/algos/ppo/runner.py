@@ -3,45 +3,74 @@
 
 TensorBoard logging with the reference's names (src/train.py:269-279), SPS
 accounting, periodic checkpoints with ``--save-interval``/``--save-dir``/
-``--load-from`` (src/utils.py:23-44,103-108) and ``--profile``.  One
-``train_iteration`` call per update, of any algorithm of the package:
-feedforward and recurrent PPO, PPO + RND, or a PPG cycle.  Not ported: ``--track`` and
-``--capture-video`` (ROADMAP A.9 ports ``utils/wandb_local`` and
-``utils/video``; both raise), and the JAX runner's run journal
-(``utils/resume.journal_run``).
+``--load-from`` (src/utils.py:23-44,103-108), ``--profile``, ``--track``
+(the metrics writer's ``wandb_local/`` mirror), ``--capture-video`` (a
+greedy episode GIF under ``videos/<run_name>/`` at every checkpoint and at
+the end, ``utils/video.py``) and the run journal (``utils/resume.py``:
+"running" at the start, "finished" at the end, in ``runs_manifest.jsonl``
+of the working directory).  One ``train_iteration`` call per update, of any
+algorithm of the package: feedforward and recurrent PPO, PPO + RND, or a
+PPG cycle.
 """
 
 from __future__ import annotations
 
+import sys
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from mmtrl_tpu_torch.algos.ppo.core import lr_schedule
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
+from mmtrl_tpu_torch.utils.profiling import start_trace
+from mmtrl_tpu_torch.utils.resume import journal_run
+from mmtrl_tpu_torch.utils.video import capture_video
+
+VIDEO_SEED_OFFSET = 777  # the capture's generator: seed + 777, as in JAX
+
+# (env, step_policy(model, obs, done, carry, generator) -> (action, carry),
+#  model_of(runner), initial carry)
+VideoSetup = Tuple[Any, Callable, Callable[[Any], Any], Any]
 
 PROFILE_UPDATES = (3, 7)  # --profile traces these updates, both included
 
 
 def run_training(algo: Any, cfg: Any, args, device: torch.device,
-                 run_name: Optional[str] = None) -> Dict[str, Any]:
+                 run_name: Optional[str] = None,
+                 video_setup: Optional[VideoSetup] = None) -> Dict[str, Any]:
     """Drives ``cfg.num_updates`` iterations of ``algo``, which has
     ``init_runner(generator)`` and ``train_iteration(runner)``; the runner
     has ``step`` (optimizer steps), ``stats``, ``payload()`` and
     ``load_payload()``.  ``cfg`` gives ``batch_size`` (env steps per
     iteration), ``num_updates``, ``opt_steps_per_update`` and the learning
     rate's ``anneal_lr`` and ``learning_rate``.  Every metric the iteration
-    returns is logged under its own name.  Returns a summary dict with the
-    final runner and one row per update (wall seconds, SPS, metrics, peak
-    device memory)."""
-    for flag in ("track", "capture_video"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP A.9)")
+    returns is logged under its own name.  With ``--capture-video`` and a
+    ``video_setup``, each checkpoint and the end record a greedy episode
+    (``utils/video.py::capture_video``, its draws from a generator seeded
+    ``seed + 777``); a script without one ignores the flag, as the JAX
+    script does.  Returns a summary dict with the final runner, one row per
+    update (wall seconds, SPS, metrics, peak device memory) and the GIFs
+    written."""
     run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
+    journal_run(run_name, sys.argv, "running")
+    videos = []
+
+    def maybe_capture(runner, tag):
+        if video_setup is None or not getattr(args, "capture_video", False):
+            return
+        venv, step_policy, model_of, carry = video_setup
+        generator = torch.Generator(device=venv.device).manual_seed(
+            args.seed + VIDEO_SEED_OFFSET)
+        path = capture_video(venv, step_policy, model_of(runner), run_name, generator,
+                             tag=tag, initial_carry=carry)
+        print(f"recorded rollout video: {path}")
+        videos.append(path)
+
+    if getattr(args, "track", False):
+        print(f"tracking to wandb_local/ (the local wandb journal); run: {run_name}")
     schedule = lr_schedule(cfg)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -64,7 +93,7 @@ def run_training(algo: Any, cfg: Any, args, device: torch.device,
     profiler = None
     for update in range(initial_update, cfg.num_updates + 1):
         if getattr(args, "profile", False) and update == PROFILE_UPDATES[0]:
-            profiler = _start_profile(run_name, cuda)
+            profiler = start_trace(f"profiles/{run_name}", cuda)
         t0 = time.perf_counter()
         runner, metrics = algo.train_iteration(runner)
         if cuda:
@@ -100,11 +129,14 @@ def run_training(algo: Any, cfg: Any, args, device: torch.device,
 
         if getattr(args, "save_interval", 0) and update % args.save_interval == 0:
             save_run(runner.payload(), run_name, args.save_dir)
+            maybe_capture(runner, f"update_{update}")
 
     if profiler is not None:
         profiler.stop()
     if getattr(args, "save_interval", 0):
         save_run(runner.payload(), run_name, args.save_dir)
+    maybe_capture(runner, "final")
+    journal_run(run_name, sys.argv, "finished")
     writer.close()
     elapsed = time.time() - start
     return {
@@ -116,19 +148,5 @@ def run_training(algo: Any, cfg: Any, args, device: torch.device,
         "episode_count": int(runner.stats.episode_count),
         "history": history,
         "runner": runner,
+        "videos": videos,
     }
-
-
-def _start_profile(run_name: str, cuda: bool):
-    """A ``torch.profiler`` trace under ``profiles/<run_name>``, the
-    counterpart of the JAX runner's ``jax.profiler`` trace."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if cuda:
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(
-        activities=activities,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(f"profiles/{run_name}"),
-    )
-    profiler.start()
-    return profiler
-

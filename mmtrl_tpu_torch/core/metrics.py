@@ -5,7 +5,10 @@ and ``MetricsWriter`` in ``mmtrl_tpu/core/metrics.py``.
 ``MetricsWriter`` writes the event file itself (``EventFileWriter``):
 ``torch.utils.tensorboard`` imports the ``tensorboard`` package, which the
 port does not need.  TensorBoard reads the files as it reads the JAX
-package's.
+package's.  ``read_scalars`` reads them back, and the files of torch's
+``SummaryWriter``, without TensorBoard: the plot and tuner tools
+(``utils/plot.py``, ``plot_individual.py``, ``tuner.py``) read through it
+where the JAX package's use TensorBoard's ``EventAccumulator``.
 """
 
 from __future__ import annotations
@@ -15,10 +18,14 @@ import itertools
 import os
 import socket
 import struct
+import sys
 import time
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
+
+from mmtrl_tpu_torch.utils import wandb_local
 
 
 @dataclasses.dataclass
@@ -172,12 +179,107 @@ class EventFileWriter:
         self._file.close()
 
 
+# ---- reading them back ------------------------------------------------------
+
+def _varint_at(buf: bytes, pos: int) -> Tuple[int, int]:
+    value = shift = 0
+    while True:
+        byte = buf[pos]
+        pos += 1
+        value |= (byte & 0x7F) << shift
+        shift += 7
+        if not byte & 0x80:
+            return value, pos
+
+
+def _proto_fields(buf: bytes) -> Iterator[Tuple[int, int, Any]]:
+    """(field number, wire type, value) of a serialized message: an int for
+    a varint, the raw bytes otherwise."""
+    pos = 0
+    while pos < len(buf):
+        key, pos = _varint_at(buf, pos)
+        number, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = _varint_at(buf, pos)
+        elif wire == 1:
+            value, pos = buf[pos:pos + 8], pos + 8
+        elif wire == 2:
+            n, pos = _varint_at(buf, pos)
+            value, pos = buf[pos:pos + n], pos + n
+        elif wire == 5:
+            value, pos = buf[pos:pos + 4], pos + 4
+        else:
+            raise ValueError(f"unsupported wire type {wire} in an event")
+        yield number, wire, value
+
+
+def read_records(path: str) -> Iterator[bytes]:
+    """The serialized events of one event file, in order.  A record cut
+    short at the end of the file (a run still writing, or killed) ends the
+    file, as TensorBoard's loader ends it; a whole record whose masked
+    CRC-32C does not match raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = 0
+    while pos + 12 <= len(data):
+        header = data[pos:pos + 8]
+        (length,) = struct.unpack("<Q", header)
+        (header_crc,) = struct.unpack("<I", data[pos + 8:pos + 12])
+        if header_crc != _masked_crc32c(header):
+            raise ValueError(f"{path}: corrupt record length at byte {pos}")
+        end = pos + 12 + length + 4
+        if end > len(data):
+            return
+        event = data[pos + 12:pos + 12 + length]
+        if struct.unpack("<I", data[end - 4:end])[0] != _masked_crc32c(event):
+            raise ValueError(f"{path}: corrupt record at byte {pos}")
+        yield event
+        pos = end
+
+
+def read_scalars(run_dir: str) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """{tag: (steps int64, values float64)} of every ``simple_value`` summary
+    in the event files of ``run_dir``, the files in name order and each in
+    file order: what ``EventAccumulator(run_dir).Scalars(tag)`` gives up to
+    its 10,000-point reservoir per tag, past which TensorBoard samples and
+    this keeps every point.  Tensor summaries (the hyperparameter text) are
+    not scalars there either."""
+    series: Dict[str, Tuple[list, list]] = {}
+    names = sorted(n for n in os.listdir(run_dir) if "tfevents" in n)
+    for name in names:
+        for event in read_records(os.path.join(run_dir, name)):
+            step, summary = 0, b""
+            for number, _, value in _proto_fields(event):
+                if number == 2:
+                    step = value - (1 << 64) if value >= 1 << 63 else value
+                elif number == 5:
+                    summary = value
+            for number, _, value in _proto_fields(summary):
+                if number != 1:
+                    continue
+                tag, simple = None, None
+                for vnumber, wire, v in _proto_fields(value):
+                    if vnumber == 1:
+                        tag = v.decode()
+                    elif vnumber == 2 and wire == 5:
+                        (simple,) = struct.unpack("<f", v)
+                if tag is not None and simple is not None:
+                    steps, values = series.setdefault(tag, ([], []))
+                    steps.append(step)
+                    values.append(simple)
+    return {tag: (np.array(s, dtype=np.int64), np.array(v, dtype=np.float64))
+            for tag, (s, v) in series.items()}
+
+
 class MetricsWriter:
     """TensorBoard sink with the reference's standardized scalar names
     (``charts/*``, ``losses/*``, ``charts/SPS``, ``charts/SPS_cumulative``)
     and the hyperparameter table, under ``$MMTRL_RUN_ROOT`` (default
-    ``runs``)/<run_name>.  Port of the JAX ``MetricsWriter`` without its
-    ``--track`` mirror (wandb_local is not ported)."""
+    ``runs``)/<run_name>.  With ``config.track`` every scalar is mirrored to
+    the wandb-compatible local journal, ``wandb_local/<project>/<run_name>``
+    (``utils/wandb_local.py``; the project is ``config.wandb_project_name``),
+    as the JAX writer mirrors it (the reference mirrors TensorBoard to
+    wandb, src/train.py:75-83); ``close`` marks that run finished."""
 
     def __init__(self, run_name: str, config: Optional[Any] = None, root: str = "runs"):
         self.run_name = run_name
@@ -185,6 +287,10 @@ class MetricsWriter:
         self.writer = EventFileWriter(f"{root}/{run_name}")
         self.start_time = time.time()
         self._last_step, self._last_time = 0, self.start_time
+        self.track_run = None
+        if config is not None and getattr(config, "track", False):
+            project = getattr(config, "wandb_project_name", None) or "mmtrl"
+            self.track_run = wandb_local.init(project, run_name, config=config, argv=sys.argv)
         if config is not None:
             items = (dataclasses.asdict(config).items() if dataclasses.is_dataclass(config)
                      else vars(config).items())
@@ -193,6 +299,8 @@ class MetricsWriter:
 
     def scalar(self, tag: str, value: Any, step: int) -> None:
         self.writer.add_scalar(tag, float(value), step)
+        if self.track_run is not None:
+            self.track_run.log({tag: float(value)}, step)
 
     def scalars(self, values: Mapping[str, Any], step: int) -> None:
         for tag, value in values.items():
@@ -211,3 +319,5 @@ class MetricsWriter:
 
     def close(self) -> None:
         self.writer.close()
+        if self.track_run is not None:
+            self.track_run.finish()

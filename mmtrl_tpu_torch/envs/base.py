@@ -26,13 +26,16 @@ def _expand(pred: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def tree_select(pred: torch.Tensor, on_true, on_false):
-    """Fieldwise ``where`` between two states of one dataclass type."""
+    """Fieldwise ``where`` between two states of one dataclass type; a
+    field that is itself such a state (a wrapper's inner state) is selected
+    field by field."""
+    def select(a, b):
+        if dataclasses.is_dataclass(a):
+            return tree_select(pred, a, b)
+        return torch.where(_expand(pred, a), a, b)
+
     return type(on_true)(**{
-        f.name: torch.where(
-            _expand(pred, getattr(on_true, f.name)),
-            getattr(on_true, f.name),
-            getattr(on_false, f.name),
-        )
+        f.name: select(getattr(on_true, f.name), getattr(on_false, f.name))
         for f in dataclasses.fields(on_true)
     })
 

@@ -1,6 +1,6 @@
-"""Running statistics and the continuous-control env wrappers; port of
-``RunningStat``, ``ClipAction``, ``NormalizeObservation`` and
-``NormalizeReward`` of ``mmtrl_tpu/envs/wrappers.py``.
+"""Running statistics and the env wrappers; port of ``ClipReward``,
+``FrameStack``, ``RunningStat``, ``ClipAction``, ``NormalizeObservation``
+and ``NormalizeReward`` of ``mmtrl_tpu/envs/wrappers.py``.
 
 A wrapper is an ``Environment`` around another and steps the whole batch
 at once.  JAX steps its wrappers under ``jax.vmap``, one env at a time, so
@@ -9,8 +9,11 @@ the statistics carry the env batch on dim 0 (``RunningStat.create_each``,
 ``update_each``) and every env's row is updated from its own observation
 or return, as JAX's are.  The normalizers call the inner env's ``step``,
 whose auto-reset touches only the inner state, so the statistics and the
-discounted return outlive an episode: wrap them outermost.  ``ClipReward``
-and ``FrameStack`` serve no script the port has (ROADMAP A.7).
+discounted return outlive an episode: wrap them outermost.
+``ClipReward`` and ``FrameStack`` step through the base class's auto-reset,
+as JAX's do: the inner env's transition without its own reset, then the
+wrapper's reset where an episode ended (a fresh stack of k copies).  No
+entry script of either package uses them.
 """
 
 from __future__ import annotations
@@ -91,6 +94,56 @@ class _Wrapper(Environment):
     @property
     def name(self):
         return self.env.name
+
+
+class ClipReward(_Wrapper):
+    """Sign-clip rewards like SB3's ClipRewardEnv (reference: src/train.py:57,
+    flag --clip-rewards at src/utils.py:123-124); the raw reward is
+    ``info["raw_reward"]``, for the episode statistics."""
+
+    def reset(self, num_envs: int, generator: Optional[torch.Generator] = None):
+        return self.env.reset(num_envs, generator)
+
+    def _step_env(self, state: Any, action: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> StepResult:
+        obs, state, reward, done, info = self.env._step_env(state, action, generator)
+        return obs, state, torch.sign(reward), done, dict(info, raw_reward=reward)
+
+
+@dataclasses.dataclass
+class StackState:
+    inner: Any
+    frames: torch.Tensor  # (n, k, C, H, W), newest last
+
+
+class FrameStack(_Wrapper):
+    """Stack the last k observations and flatten them into channels, the
+    CASL queue pattern (casl_environment.py:42-94) without a host-side
+    deque: the stack is part of the env state."""
+
+    def __init__(self, env: Environment, k: int = 4):
+        super().__init__(env)
+        self.k = k
+
+    @staticmethod
+    def _stack_obs(frames: torch.Tensor) -> torch.Tensor:
+        return frames.reshape((frames.shape[0], -1) + tuple(frames.shape[3:]))
+
+    def reset(self, num_envs: int, generator: Optional[torch.Generator] = None):
+        obs, inner = self.env.reset(num_envs, generator)
+        frames = obs[:, None].repeat_interleave(self.k, dim=1)
+        return self._stack_obs(frames), StackState(inner=inner, frames=frames)
+
+    def _step_env(self, state: StackState, action: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> StepResult:
+        obs, inner, reward, done, info = self.env._step_env(state.inner, action, generator)
+        frames = torch.cat([state.frames[:, 1:], obs[:, None]], dim=1)
+        return self._stack_obs(frames), StackState(inner=inner, frames=frames), reward, done, info
+
+    @property
+    def observation_space(self):
+        sp = self.env.observation_space
+        return type(sp)(sp.low, sp.high, (sp.shape[0] * self.k,) + tuple(sp.shape[1:]))
 
 
 class ClipAction(_Wrapper):

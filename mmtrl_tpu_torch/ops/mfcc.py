@@ -8,7 +8,9 @@ tensor path, float32 on the signal's device, batched over leading dims: the
 streaming stereo windows of the native 2600 envs, per step.  The JAX
 package resizes the (13, frames) feature image with PIL's bicubic filter;
 here that resize is rebuilt as two numpy matrices with PIL's arithmetic, so
-the port needs no PIL.  ``log_mel_spectrogram`` is not ported yet.
+the port needs no PIL.  ``log_mel_spectrogram`` (the Skeleton+ embedding
+path's log-mel features) runs under numpy in float64 or torch in float32,
+as JAX's runs under numpy or jnp.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -134,6 +136,32 @@ def mfcc(signal: np.ndarray, params: MFCCParams = MFCCParams()) -> np.ndarray:
     if params.append_energy:
         feat = np.concatenate([np.log(energy)[:, None], feat[:, 1:]], axis=-1)
     return feat
+
+
+def log_mel_spectrogram(signal, params: MFCCParams = MFCCParams(), xp: Any = np):
+    """(num_frames, nfilt) log-mel features of a 1-D signal: float64 numpy
+    with ``xp=np``; with ``xp=torch`` float32 on the signal's device (a
+    tensor's, else the CPU), the projection in full float32."""
+    if xp is np:
+        sig = np.asarray(signal, dtype=np.float64)
+    else:
+        sig = torch.as_tensor(signal).to(torch.float32)
+    sig = xp.concatenate([sig[:1], sig[1:] - params.preemph * sig[:-1]])
+    slen = int(sig.shape[0])
+    nframes = _num_frames(slen, params)
+    pad = max((nframes - 1) * params.frame_step + params.frame_len - slen, 0)
+    idx = np.arange(nframes)[:, None] * params.frame_step + np.arange(params.frame_len)[None, :]
+    if xp is np:
+        frames = np.concatenate([sig, np.zeros(pad)])[idx]
+        spec = np.fft.rfft(frames, n=params.fft_size, axis=-1)
+        pspec = (spec.real**2 + spec.imag**2) / params.fft_size
+        feat = pspec @ mel_filterbank(params).T
+        return np.log(np.where(feat == 0, np.finfo(np.float64).eps, feat))
+    frames = torch.nn.functional.pad(sig, (0, pad))[torch.as_tensor(idx, device=sig.device)]
+    spec = torch.fft.rfft(frames, n=params.fft_size, dim=-1)
+    pspec = (spec.real**2 + spec.imag**2) / params.fft_size
+    feat = full_float32_matmul(pspec, _tensor_constants(params, sig.device)[0])
+    return torch.log(torch.where(feat == 0, torch.finfo(torch.float32).eps, feat))
 
 
 @functools.lru_cache(maxsize=None)

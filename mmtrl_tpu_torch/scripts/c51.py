@@ -29,10 +29,10 @@ class Args:
     torch_deterministic: bool = field(
         True, "set torch.backends.cudnn.deterministic (deterministic cuDNN algorithms)")
     cuda: bool = field(True, "run on the CUDA card (raises without one); False: on the CPU")
-    track: bool = field(False, "mirror metrics to wandb (not ported yet: raises)")
+    track: bool = field(False, "mirror metrics to the local wandb journal (wandb_local/)")
     wandb_project_name: str = field("cleanRL", "the wandb's project name")
     wandb_entity: Optional[str] = field(None, "the entity (team) of wandb's project")
-    capture_video: bool = field(False, "capture videos of the agent (not ported yet: raises)")
+    capture_video: bool = field(False, "CLI compat (accepted and ignored, as in JAX)")
     env_id: str = field("CartPole-v1", "the id of the environment")
     total_timesteps: int = field(500000, "total timesteps of the experiments")
     learning_rate: float = field(2.5e-4, "the learning rate of the optimizer")

@@ -10,8 +10,8 @@ gymnasium envs, a copy to the host and back each step; ``--host-loop``
 steps a ``GymPool`` even for a registry id and trains through
 ``algos/offpolicy/hostloop.py`` (behaviour actions on the host, a chunk of
 ``--chunk-size`` steps of transitions to the card at a time).  Both need
-the gymnasium package.  ``--track`` and ``--capture-video`` raise naming
-ROADMAP A.9.
+the gymnasium package.  ``--track`` journals the metrics to
+``wandb_local/``; ``--capture-video`` is accepted and ignored, as in JAX.
 
     python -m mmtrl_tpu_torch.scripts.ddpg_continuous_action --env-id Pendulum-v1
     python -m mmtrl_tpu_torch.scripts.ddpg_continuous_action --cuda False \\
@@ -41,10 +41,10 @@ class Args:
     torch_deterministic: bool = field(
         True, "set torch.backends.cudnn.deterministic (deterministic cuDNN algorithms)")
     cuda: bool = field(True, "run on the CUDA card (raises without one); False: on the CPU")
-    track: bool = field(False, "mirror metrics to wandb (not ported yet: raises)")
+    track: bool = field(False, "mirror metrics to the local wandb journal (wandb_local/)")
     wandb_project_name: str = field("cleanRL", "the wandb's project name")
     wandb_entity: Optional[str] = field(None, "the entity (team) of wandb's project")
-    capture_video: bool = field(False, "capture videos of the agent (not ported yet: raises)")
+    capture_video: bool = field(False, "CLI compat (accepted and ignored, as in JAX)")
     env_id: str = field("Pendulum-v1", "the id of the environment")
     total_timesteps: int = field(1000000, "total timesteps of the experiments")
     learning_rate: float = field(3e-4, "the learning rate of the optimizer")

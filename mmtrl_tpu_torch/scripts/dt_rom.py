@@ -230,8 +230,7 @@ def main(args=None):
                 metrics = {k: float(v) for k, v in metrics.items()}
                 tokens_sec = (step * args.batch_size * 3 * args.context_len
                               / max(time.perf_counter() - start, 1e-9))
-                writer.scalars(metrics, step)
-                writer.scalar("charts/tokens_per_sec", tokens_sec, step)
+                writer.scalars(dict(sorted(metrics.items())), step)  # JAX's device_get order
                 print(f"step={step}/{args.total_steps} loss={metrics['dt/loss']:.4f} "
                       f"acc={metrics['dt/action_accuracy']:.3f} tokens/s={tokens_sec:.0f}",
                       flush=True)

@@ -2,7 +2,9 @@
 ``scripts/ppo.py``.  The generic feedforward PPO
 (``algos/ppo/core.py::make_ppo``) with the 64-64 tanh actor and critic
 (``MLPActorCritic``) on a classic env on the card; raw rewards
-(``--clip-rewards`` False).  Same CLI and defaults as the JAX script.
+(``--clip-rewards`` False).  Same CLI and defaults as the JAX script;
+``--capture-video`` records greedy episodes (the argmax of the logits) as
+GIFs under ``videos/<run_name>/``.
 
     python -m mmtrl_tpu_torch.scripts.ppo --env-id CartPole-v1 --total-timesteps 500000
     python -m mmtrl_tpu_torch.scripts.ppo --cuda False --env-id Acrobot-v1 --total-timesteps 2048
@@ -44,10 +46,18 @@ def build(args):
     return make_ppo(env, make_agent(args, env, device), cfg), cfg, device
 
 
+def video_policy(model, obs, done, carry, generator):
+    """The greedy step: the argmax of the logits."""
+    logits, _ = model(obs)
+    return logits.argmax(-1), carry
+
+
 def main(args=None):
     args = args or cli(Args)
     algo, cfg, device = build(args)
-    return run_training(algo, cfg, args, device)
+    video_setup = (algo.env, video_policy, lambda rs: rs.model,
+                   None) if args.capture_video else None
+    return run_training(algo, cfg, args, device, video_setup=video_setup)
 
 
 if __name__ == "__main__":

@@ -84,10 +84,17 @@ def build(args):
     return make_continuous_ppo(env, model, cfg), cfg, device
 
 
+def video_policy(model, obs, done, carry, generator):
+    """The greedy step: the Gaussian's mean."""
+    return model(obs)[0], carry
+
+
 def main(args=None):
     args = args or cli(Args)
     algo, cfg, device = build(args)
-    return run_training(algo, cfg, args, device)
+    video_setup = (algo.env, video_policy, lambda rs: rs.model,
+                   None) if args.capture_video else None
+    return run_training(algo, cfg, args, device, video_setup=video_setup)
 
 
 if __name__ == "__main__":

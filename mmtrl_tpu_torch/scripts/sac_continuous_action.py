@@ -4,8 +4,8 @@
 ``SquashedGaussianActor`` and two ``QFunction``s on the card, alpha
 autotuned, and a greedy evaluation (``tanh(mean)`` scaled to the action
 space).  Same CLI and defaults as the JAX script; ``--host-loop`` and the
-gymnasium ids as in ``ddpg_continuous_action``; ``--track`` and
-``--capture-video`` raise naming ROADMAP A.9.
+gymnasium ids as in ``ddpg_continuous_action``; ``--track`` journals the
+metrics to ``wandb_local/`` and ``--capture-video`` is ignored, as in JAX.
 
     python -m mmtrl_tpu_torch.scripts.sac_continuous_action --env-id Pendulum-v1
     python -m mmtrl_tpu_torch.scripts.sac_continuous_action --cuda False \\
@@ -31,10 +31,10 @@ class Args:
     torch_deterministic: bool = field(
         True, "set torch.backends.cudnn.deterministic (deterministic cuDNN algorithms)")
     cuda: bool = field(True, "run on the CUDA card (raises without one); False: on the CPU")
-    track: bool = field(False, "mirror metrics to wandb (not ported yet: raises)")
+    track: bool = field(False, "mirror metrics to the local wandb journal (wandb_local/)")
     wandb_project_name: str = field("cleanRL", "the wandb's project name")
     wandb_entity: Optional[str] = field(None, "the entity (team) of wandb's project")
-    capture_video: bool = field(False, "capture videos of the agent (not ported yet: raises)")
+    capture_video: bool = field(False, "CLI compat (accepted and ignored, as in JAX)")
     env_id: str = field("Pendulum-v1", "the id of the environment")
     total_timesteps: int = field(1000000, "total timesteps of the experiments")
     q_lr: float = field(1e-3, "critic learning rate")

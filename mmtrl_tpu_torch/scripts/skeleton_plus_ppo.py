@@ -16,7 +16,9 @@ the two stereo MFCC planes) trains with recurrent PPO:
   ``reset``/``step`` (the JAX script's fused loop, which reaches the pool
   through ``io_callback``); with it, in ``algos/ppo/hostloop.py``.
 
-Same CLI as the JAX script.
+Same CLI as the JAX script.  ``--capture-video`` records greedy episodes
+as ``scripts.train`` does, on the fused path; the host loop ignores it,
+as JAX's does.
 
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo
     python -m mmtrl_tpu_torch.scripts.skeleton_plus_ppo --cuda False --conv-size small \\
@@ -42,6 +44,7 @@ from mmtrl_tpu_torch.scripts._common import (
     ppo_config_from,
     seeded,
 )
+from mmtrl_tpu_torch.scripts.train import recurrent_video_policy
 
 
 @dataclasses.dataclass
@@ -95,7 +98,11 @@ def main(args=None):
             device=device,
         ))
         if not args.host_loop:
-            return run_training(make_recurrent_ppo(env, model, cfg), cfg, args, device)
+            video_setup = (env, recurrent_video_policy, lambda rs: rs.model,
+                           model.initial_carry(getattr(env, "num_envs", 1))
+                           ) if args.capture_video else None
+            return run_training(make_recurrent_ppo(env, model, cfg), cfg, args, device,
+                                video_setup=video_setup)
         return run_recurrent_ppo_hostloop(env, model, cfg, args, device,
                                           eval_steps=args.eval_steps)
     finally:

@@ -3,7 +3,9 @@
 
 Same CLI (--attn-type casl|new, --fusion-type sum|concat, --conv-size
 big|small, checkpoint flags).  The agent is the two-tower crossmodal
-MinecraftAgent.
+MinecraftAgent.  ``--capture-video`` records a greedy episode (the argmax
+of the agent's logits, its LSTM carry from one env's zeros) as a GIF under
+``videos/<run_name>/`` at each checkpoint and at the end.
 
     python -m mmtrl_tpu_torch.scripts.train --env-id minecraft --attn-type casl --fusion-type sum
     python -m mmtrl_tpu_torch.scripts.train --cuda False --conv-size small --total-timesteps 64
@@ -46,13 +48,22 @@ def make_agent(args, num_actions: int, device) -> MultimodalRecurrentAgent:
     ))
 
 
+def recurrent_video_policy(model, obs, done, carry, generator):
+    """The greedy step of a recurrent agent: the argmax of its logits."""
+    logits, _, carry = model(obs[None], done[None], carry)
+    return logits[0].argmax(-1), carry
+
+
 def main(args=None):
     args = args or cli(Args)
     device = device_from(args)
     env = make(args.env_id, device=device)
     cfg = ppo_config_from(args)
-    ppo = make_recurrent_ppo(env, make_agent(args, env.num_actions, device), cfg)
-    return run_training(ppo, cfg, args, device)
+    model = make_agent(args, env.num_actions, device)
+    ppo = make_recurrent_ppo(env, model, cfg)
+    video_setup = (env, recurrent_video_policy, lambda rs: rs.model,
+                   model.initial_carry(1)) if args.capture_video else None
+    return run_training(ppo, cfg, args, device, video_setup=video_setup)
 
 
 if __name__ == "__main__":

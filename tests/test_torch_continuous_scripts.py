@@ -3,10 +3,9 @@ tiny budgets): ``ppo_continuous_action`` and ``rpo_continuous_action`` on
 Pendulum under the wrapper stack, with a save; ``ddpg``, ``td3`` and
 ``sac_continuous_action`` with their greedy evaluations; a SAC
 ``--load-from`` resume equal bit for bit to the run continued in memory;
-the CLIs against the JAX scripts' on the same argv; the branches that
-raise naming ROADMAP A.9 (the gymnasium ids and ``--host-loop`` among
-them: they run, and refuse ``--track`` and ``--capture-video``); and the
-entry points' default device."""
+the CLIs against the JAX scripts' on the same argv; ``--track`` and
+``--capture-video`` on each branch (the gymnasium ids and
+``--host-loop`` among them); and the entry points' default device."""
 
 import dataclasses
 import importlib
@@ -17,6 +16,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_run_checks import check_run_outputs
 
 from mmtrl_tpu_torch.core import checkpoint
 from mmtrl_tpu_torch.core.config import cli
@@ -178,24 +178,29 @@ def test_cli_matches_the_jax_cli(name, argv, monkeypatch):
 
 
 # Cases 0-5 were gymnasium ids and --host-loop, which raised naming A.7
-# until the gymnasium bridge and the host loop ran: each moved, at its
-# index, to the same branch with a flag that still raises (naming A.9),
-# the host loop's own refusal for the two --host-loop cases.
-@pytest.mark.parametrize("name,argv,item", [
-    ("ppo", ["--env-id", "HalfCheetah-v4", "--track"], "A.9"),
-    ("rpo", ["--env-id", "Hopper-v4", "--capture-video"], "A.9"),
-    ("ddpg", ["--env-id", "HalfCheetah-v4", "--capture-video"], "A.9"),
-    ("td3", ["--host-loop", "--track"], "A.9"),
-    ("sac", ["--host-loop", "--capture-video"], "A.9"),
-    ("sac", ["--env-id", "Walker2d-v4", "--track"], "A.9"),
-    ("ppo", ["--capture-video"], "A.9"),
-    ("ddpg", ["--track"], "A.9"),
-    ("sac", ["--capture-video"], "A.9"),
+# until the gymnasium bridge and the host loop ran; then those branches
+# with --track or --capture-video, which raised until the run journal,
+# wandb_local and the GIF writer were ported.  Each case, at its index, now
+# checks what its flag does on its branch: --track mirrors to wandb_local/;
+# --capture-video writes a GIF where the JAX script records one (the PPO
+# pair, on a registry env and on a gymnasium pool) and nothing where JAX
+# ignores it (DDPG, TD3, SAC, the host loop included); every run journals.
+@pytest.mark.parametrize("name,argv,gifs", [
+    ("ppo", ["--env-id", "HalfCheetah-v4", "--track"], ()),
+    ("rpo", ["--env-id", "Hopper-v4", "--capture-video"], ("final.gif",)),
+    ("ddpg", ["--env-id", "HalfCheetah-v4", "--capture-video"], ()),
+    ("td3", ["--host-loop", "--track", "--chunk-size", "32"], ()),
+    ("sac", ["--host-loop", "--capture-video", "--chunk-size", "32"], ()),
+    ("sac", ["--env-id", "Walker2d-v4", "--track"], ()),
+    ("ppo", ["--capture-video"], ("final.gif",)),
+    ("ddpg", ["--track"], ()),
+    ("sac", ["--capture-video"], ()),
 ])
-def test_unported_branches_name_their_roadmap_item(name, argv, item):
+def test_track_and_capture_video_on_each_branch(name, argv, gifs, in_tmp):
     module = ALL[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        module.main(cli(module.Args, ["--cuda", "False", "--total-timesteps", "64"] + argv))
+    base = TINY_PPO if name in ("ppo", "rpo") else TINY_AC
+    out = module.main(cli(module.Args, base + ["--total-timesteps", "64"] + argv))
+    check_run_outputs(in_tmp, out["run_name"], track="--track" in argv, gifs=gifs)
 
 
 @pytest.mark.parametrize("name", list(ALL))

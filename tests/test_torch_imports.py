@@ -1,7 +1,8 @@
 """The port and its scripts stand alone: no jax, flax, optax, orbax, cv2,
 PIL, tensorboard or mmtrl_tpu import anywhere in them (the card machine
-has none of them), and chip_smoke.py fails without CUDA or without the
-package."""
+has none of them), each run-tooling module imports with PIL, tensorboard,
+matplotlib and optuna blocked, and chip_smoke.py fails without CUDA or
+without the package."""
 
 import ast
 import os
@@ -55,7 +56,14 @@ CLASSIC_MODULES = [
     # the gymnasium bridge, the off-policy host loop and the evaluation tools
     "envs/gym_bridge.py", "algos/offpolicy/hostloop.py", "tools/__init__.py",
     "tools/eval_pong.py", "tools/eval_rom_policy.py",
-]
+] + [f"utils/{name}.py" for name in (
+    # the run tooling: the journal, its readers, video, profiling, the tuner
+    "wandb_local", "resume", "reproduce", "video", "profiling", "plot", "plot_individual",
+    "paper_plot", "tuner", "visualize", "benchmark", "queue_runner", "submit_exp",
+    "docker_build", "add_header")]
+# imported only inside the functions that draw (matplotlib) or nowhere;
+# the card's machine has none of them
+BLOCKED = ("PIL", "tensorboard", "matplotlib", "optuna")
 
 
 @pytest.mark.parametrize("name", CLASSIC_MODULES)
@@ -66,6 +74,29 @@ def test_classic_modules_are_scanned(name):
     bridge, the off-policy host loop and the tools) are
     among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
+
+
+@pytest.mark.parametrize("name", [m for m in CLASSIC_MODULES if m.startswith("utils/")]
+                         + ["core/metrics.py", "ops/mfcc.py", "envs/wrappers.py"])
+def test_run_tooling_imports_with_drawing_and_tensorboard_blocked(name):
+    """Each module imports in a fresh process in which PIL, tensorboard,
+    matplotlib and optuna cannot be imported, and loads none of jax or
+    mmtrl_tpu."""
+    module = "mmtrl_tpu_torch." + name.removesuffix(".py").replace("/", ".")
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, fullname, path=None, target=None):\n"
+        f"        if fullname.split('.')[0] in {BLOCKED!r}:\n"
+        "            raise ImportError(f'{fullname} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {module}\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r}))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
 
 
 def test_importing_the_port_loads_nothing_forbidden():

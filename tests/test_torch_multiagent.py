@@ -34,6 +34,7 @@ from mmtrl_tpu_torch.envs.pong_ma import NativePong2P
 from mmtrl_tpu_torch.models.agents import CNNAgent
 from mmtrl_tpu_torch.scripts import ppo_ma_minecraft
 from test_torch_envs import OBS_ATOL
+from torch_run_checks import check_run_outputs
 from test_torch_ppo_family_updates import (
     _assert_same_end,
     _compare_metrics,
@@ -298,9 +299,10 @@ def test_cli_matches_the_jax_cli(monkeypatch):
     assert cli(ppo_ma_minecraft.Args, []).num_envs == 4
 
 
-def test_main_counts_slot_steps(tmp_path, monkeypatch):
+def test_main_counts_slot_steps_and_tracks(tmp_path, monkeypatch):
     """``main`` on the CPU at 2 joint envs x 8 steps: each update is 2 x 2 x 8
-    = 32 slot-steps, the agent sees 3 channels, and every parameter trains."""
+    = 32 slot-steps, the agent sees 3 channels, and every parameter trains;
+    with ``--track`` the run journals and mirrors its metrics."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("MMTRL_RUN_ROOT", str(tmp_path / "runs"))
     args = cli(ppo_ma_minecraft.Args, ["--cuda", "False", "--num-envs", "2", "--num-steps", "8",
@@ -314,5 +316,8 @@ def test_main_counts_slot_steps(tmp_path, monkeypatch):
     assert out["runner"].model.network.Conv_0.weight.shape[1] == 3
     assert all(not torch.equal(a, b) for a, b in zip(start, out["runner"].model.parameters()))
     assert (tmp_path / "saved_agents" / out["run_name"]).exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ppo_ma_minecraft.main(cli(ppo_ma_minecraft.Args, ["--cuda", "False", "--track"]))
+    # --track, which raised until the journal and wandb_local were ported
+    tracked = ppo_ma_minecraft.main(cli(ppo_ma_minecraft.Args, [
+        "--cuda", "False", "--num-envs", "2", "--num-steps", "8", "--total-timesteps", "32",
+        "--track"]))
+    check_run_outputs(tmp_path, tracked["run_name"], track=True)

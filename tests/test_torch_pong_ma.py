@@ -34,6 +34,7 @@ from mmtrl_tpu_torch.models.agents import MultimodalRecurrentAgent
 from mmtrl_tpu_torch.scripts import ppo_ma_pong
 from test_torch_native import OBS_ATOL
 from test_torch_ppo import _compare, _t
+from torch_run_checks import check_run_outputs
 
 N_JOINT = 3
 STEPS = 200
@@ -285,8 +286,9 @@ def test_ppo_ma_pong_saves_resumes_and_evaluates(pong_runs):
     assert resumed["eval_episodic_return"] == in_memory["eval_episodic_return"]
 
 
-def test_the_loop_checks_its_rows(tmp_path, monkeypatch):
-    """A config sized by joint envs, not slots, is refused."""
+def test_the_loop_checks_its_rows_and_tracks(tmp_path, monkeypatch):
+    """A config sized by joint envs, not slots, is refused; with ``--track``
+    the run journals and mirrors its metrics."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("MMTRL_RUN_ROOT", str(tmp_path / "runs"))
     args = cli(ppo_ma_pong.Args, TINY)
@@ -298,5 +300,7 @@ def test_the_loop_checks_its_rows(tmp_path, monkeypatch):
         assert ppo_ma_pong.ppo_config_from(args, num_envs=2 * NUM_AGENTS).batch_size == 32
     finally:
         env.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        ppo_ma_pong.main(cli(ppo_ma_pong.Args, TINY + ["--track"]))
+    # --track, which raised until the journal and wandb_local were ported
+    tracked = ppo_ma_pong.main(cli(ppo_ma_pong.Args, TINY + [
+        "--total-timesteps", "32", "--eval-steps", "0", "--exp-name", "tracked", "--track"]))
+    check_run_outputs(tmp_path, tracked["run_name"], track=True)

@@ -4,8 +4,8 @@ loop with a save and a ``--load-from`` resume, ``dt_rom`` collecting with
 that checkpoint and training a plain and an MoE DT, ``dqn_rom`` with a save
 and a resume, ``c51_rom``, ``dt_rom`` collecting with their Q checkpoints,
 ``skeleton_plus_ppo`` on the device simulator and ``evaluate`` on its
-checkpoint, the CLIs against the JAX scripts', and the branches that wait
-for later ports or a missing ROM."""
+checkpoint, the CLIs against the JAX scripts', the branches that need a
+missing ROM, and ``td3`` with ``--track`` on a gymnasium id."""
 
 import dataclasses
 import importlib.util
@@ -15,6 +15,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+from torch_run_checks import check_run_outputs
 
 from mmtrl_tpu_torch.core import checkpoint
 from mmtrl_tpu_torch.core.config import cli
@@ -136,10 +138,11 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
      "SkelPlus.bin"),
     # was skeleton_plus_ppo --backend native, which now runs the fused loop
     # (its missing-ROM case is the last one), then td3 on a gymnasium id,
-    # which now runs on the host bridge: moved to that branch with a flag
-    # that still raises, naming A.9
-    (td3_continuous_action, ["--cuda", "False", "--env-id", "Humanoid-v4", "--track"],
-     NotImplementedError, "ROADMAP A.9"),
+    # which now runs on the host bridge, then that branch with --track,
+    # which now journals: the case runs (no error) and checks the journal
+    (td3_continuous_action, ["--cuda", "False", "--env-id", "Humanoid-v4", "--track",
+                             "--total-timesteps", "64", "--learning-starts", "32",
+                             "--batch-size", "8", "--steps-per-iteration", "32"], None, None),
     (skeleton_plus_ppo, ["--cuda", "False", "--backend", "native", "--host-loop"],
      FileNotFoundError, "SkelPlus.bin"),
     (dt_rom, ["--cuda", "False", "--max-timestep", "2048"], FileNotFoundError, "SkelPlus.bin"),
@@ -148,7 +151,14 @@ def test_dt_rom_random_behaviour_and_the_episode_cap_guard():
     (evaluate, ["--cuda", "False", "--load-from", "x", "--env-id", "skeleton_plus_native"],
      FileNotFoundError, "SkelPlus.bin"),
 ])
-def test_unported_branches_and_the_missing_skeleton_rom_raise(module, argv, error, match):
+def test_guards_the_missing_skeleton_rom_and_td3_tracks_on_a_gymnasium_id(
+        module, argv, error, match, in_tmp):
+    """The cases with an error raise it; td3 on a gymnasium id with
+    ``--track`` (the case without) runs, journals and mirrors its metrics."""
+    if error is None:
+        out = module.main(cli(module.Args, argv))
+        check_run_outputs(in_tmp, out["run_name"], track=True)
+        return
     with pytest.raises(error, match=match):
         module.main(cli(module.Args, argv))
 

@@ -3,9 +3,9 @@ the PPO twins end to end (recurrent, feedforward CNN, google LSTM, RND and
 PPG), their flags against the JAX scripts', checkpoints (crash-safe
 overwrite, ``--load-from`` resume continuing the update counter and the
 generator stream, for PPO and for RND), the evaluate twin on PPO
-checkpoints, the branches that wait for later ports, the DT twin collecting
-with a port PPO checkpoint, and the event files read back by
-TensorBoard."""
+checkpoints, ``--track`` and ``--capture-video`` on four branches, the DT
+twin collecting with a port PPO checkpoint, and the event files read back
+by TensorBoard."""
 
 import dataclasses
 import importlib.util
@@ -23,6 +23,8 @@ from mmtrl_tpu_torch.core.config import cli
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.envs import make
 from mmtrl_tpu_torch.envs.doorpuzzle import Doorpuzzle
+from torch_run_checks import check_run_outputs
+
 from mmtrl_tpu_torch.scripts import (
     ddpg_continuous_action,
     dqn_rom,
@@ -200,19 +202,30 @@ def test_rnd_load_from_resumes_the_update_counter_and_the_generator_stream(in_tm
 
 
 # Cases 0 and 3 were skeleton_plus_ppo --backend native and evaluate --env-id
-# skeleton_plus_native, which run since the native pools' reset/step, then
-# ddpg --host-loop and ppo_continuous_action on a gymnasium id, which run
-# since the gymnasium bridge and the host loop: each moved, at its index,
-# to the same branch with a flag that still raises, naming A.9.
-@pytest.mark.parametrize("module,argv,item", [
-    (ddpg_continuous_action, ["--host-loop", "--track"], "A.9"),
-    (minecraft_cnn, ["--capture-video"], "A.9"),
-    (dqn_rom, ["--track"], "A.9"),
-    (ppo_continuous_action, ["--env-id", "Swimmer-v4", "--capture-video"], "A.9"),
+# skeleton_plus_native, then ddpg --host-loop and ppo_continuous_action on a
+# gymnasium id, then those branches with --track or --capture-video, which
+# raised until the run journal, wandb_local and the GIF writer were ported.
+# Each case, at its index, now checks what its flag does on its branch:
+# --track mirrors to wandb_local/; --capture-video writes GIFs where the JAX
+# script records one (ppo_continuous_action) and nothing where JAX ignores
+# it (minecraft_cnn); every run journals "running" and "finished".
+@pytest.mark.parametrize("module,argv,gifs", [
+    (ddpg_continuous_action, ["--host-loop", "--track", "--num-envs", "2",
+                              "--total-timesteps", "128", "--learning-starts", "64",
+                              "--batch-size", "16", "--chunk-size", "32"], ()),
+    (minecraft_cnn, TINY_PPO[2:] + ["--capture-video", "--total-timesteps", "8",
+                                    "--save-interval", "1"], ()),
+    (dqn_rom, ["--track", "--num-envs", "2", "--episode-steps", "10", "--buffer-size", "32",
+               "--learning-starts", "16", "--batch-size", "4", "--total-timesteps", "100",
+               "--eval-steps", "0"], ()),
+    (ppo_continuous_action, ["--env-id", "Swimmer-v4", "--capture-video", "--num-envs", "2",
+                             "--num-steps", "16", "--num-minibatches", "1", "--update-epochs",
+                             "1", "--total-timesteps", "32", "--save-interval", "1"],
+     ("update_1.gif", "final.gif")),
 ])
-def test_unported_branches_name_their_roadmap_item(module, argv, item, in_tmp):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        module.main(cli(module.Args, ["--cuda", "False"] + argv))
+def test_track_and_capture_video_on_each_branch(module, argv, gifs, in_tmp):
+    out = module.main(cli(module.Args, ["--cuda", "False"] + argv))
+    check_run_outputs(in_tmp, out["run_name"], track="--track" in argv, gifs=gifs)
 
 
 def test_evaluate_ppo_on_pendulum_fails_as_the_jax_script_does(monkeypatch, in_tmp):
