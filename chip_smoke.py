@@ -116,7 +116,7 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 ``main`` at their defaults (4 x 2,048 steps, 32 x 10
                 minibatches), 2 updates each with a save, a third profiled;
                 ``ddpg``, ``td3`` and ``sac_continuous_action`` at full width
-                cut to 2,048 steps with updates past 1,024 and a greedy
+                cut to 1,536 steps with updates past 1,024 and a greedy
                 evaluation, the next 128 steps of each profiled, SAC's
                 ``--load-from`` resume equal bit for bit to those steps in
                 memory.  No kernel lies on this path: zero launches.
@@ -191,7 +191,16 @@ Phases, each printing JSON lines; any fault raises and exits nonzero:
                 the trial's last logged value, peak memory after each;
                 ``PhaseTimer`` against CUDA events.  No kernel lies on these
                 paths: zero launches.
-19. timing   -- each kernel, its plain version and the PyTorch call that
+19. parallel -- the DT's multi-device axes (``parallel/``): in a one-rank
+                NCCL group the DP, TP, FSDP and seq steps of a small
+                float32 config against the plain step (the seq step's ring
+                launching no kernel), ``bench.py``'s flagship step timed
+                through the plain, DP, TP and FSDP steps (6 launches of
+                each kernel a step), the seq step at K = 342 against the
+                flash step, the expert axis and the pipeline against their
+                one-device forms; then a 2 data x 2 model gloo world of four
+                processes on the card, equal to the one-rank step.
+20. timing   -- each kernel, its plain version and the PyTorch call that
                 computes the same function (``F.scaled_dot_product_attention``
                 and its backward, a yardstick the port never calls) at the
                 serving, training, dt_rom training and long-context shapes,
@@ -333,6 +342,12 @@ def read_counts():
 
     return {"flash_fwd": fa.launches, "flash_dq": fa.dq_launches,
             "flash_dkv": fa.dkv_launches}
+
+
+def counts_since(before):
+    """The launches of each kernel since ``before = read_counts()``."""
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after}
 
 
 def ptxas_entries(log: str):
@@ -2460,19 +2475,22 @@ CONT_BATCH = 256  # the off-policy updates' batch (the scripts' default)
 # minibatches, the wrapper stack), 2 updates of 122, with a save
 CONT_PPO_ARGS = ["--total-timesteps", "16384", "--save-interval", "2"]
 # DDPG, TD3 and SAC at full width (256-256, batch 256, a ring of 131,072, 1
-# env, 512 steps an iteration), cut in length: 2,048 of 1,000,000 steps,
-# updates past 1,024 stored (of 25,000; SAC's 5,000): 1,024 critic steps,
+# env, 512 steps an iteration), cut in length: 1,536 of 1,000,000 steps,
+# updates past 1,024 stored (of 25,000; SAC's 5,000): 512 critic steps,
 # the actor every 2nd (SAC: 2 passes), SAC's target sync every step.  (At
 # 5,120 steps the phase took 396 s on the card: SAC makes 871 device
-# operations a training step.)
-CONT_AC_ARGS = ["--total-timesteps", "2048", "--learning-starts", "1024", "--save-interval", "4"]
-CONT_AC_ITERS = 4
-CONT_AC_UPDATES = 1024
-# The next 128 steps, in iterations of 128 (the 17th): in memory (profiled)
+# operations a training step.  The runs took 2,048 steps, 1,024 updates,
+# until the parallel phase took the time of 512 of them.)
+CONT_AC_STEPS = 1536
+CONT_AC_ARGS = ["--total-timesteps", str(CONT_AC_STEPS), "--learning-starts", "1024",
+                "--save-interval", "4"]
+CONT_AC_ITERS = 3
+CONT_AC_UPDATES = 512
+# The next 128 steps, in iterations of 128 (the 13th): in memory (profiled)
 # and, for SAC, from the checkpoint
 CONT_NEXT_STEPS = 128
-CONT_RESUME_ARGS = ["--total-timesteps", "2176", "--learning-starts", "1024",
-                    "--steps-per-iteration", str(CONT_NEXT_STEPS)]
+CONT_RESUME_ARGS = ["--total-timesteps", str(CONT_AC_STEPS + CONT_NEXT_STEPS),
+                    "--learning-starts", "1024", "--steps-per-iteration", str(CONT_NEXT_STEPS)]
 
 
 def to_device(state, device):
@@ -2728,7 +2746,7 @@ def continuous_ppo_runs(smi: str, tmp: str):
 
 def continuous_ac_runs(smi: str, tmp: str):
     """(d) ``ddpg``, ``td3`` and ``sac_continuous_action`` through ``main``
-    at full width, cut to 2,048 steps with updates past 1,024, each ending
+    at full width, cut to 1,536 steps with updates past 1,024, each ending
     with the greedy evaluation and a save; the next 128 steps of each in
     memory, profiled; and SAC's next 128 from the checkpoint through
     ``--load-from``, equal bit for bit to those in memory."""
@@ -2793,7 +2811,7 @@ def continuous_ac_runs(smi: str, tmp: str):
             differing = [k for k in mine if not _same_payload(mine[k], theirs[k])]
             emit("continuous_ac", run="sac resume", initial_iteration=resumed[
                 "initial_iteration"], differing_fields=differing, card=smi)
-            check(resumed["history"][0]["global_step"] == 2048 + CONT_NEXT_STEPS
+            check(resumed["history"][0]["global_step"] == CONT_AC_STEPS + CONT_NEXT_STEPS
                   and len(resumed["history"]) == 1 and not differing,
                   f"the resumed SAC run differs from its steps in memory in {differing}")
 
@@ -4541,6 +4559,489 @@ def phase_run_tools(smi: str, tmp: str):
     restoring_flags(run_tools_checks, smi, tmp)
 
 
+# The DT's multi-device axes (ROADMAP A.8) on the one card: a one-rank NCCL
+# group, and a 2 data x 2 model gloo world of four processes on the card.
+# The small float32 config holds each step against the plain step: vector
+# states (no convolution), 4 heads of 32, two steps (the warmup schedule's
+# first learning rate is 0, the second moves the parameters).
+PAR_SMALL = dict(num_actions=4, context_len=6, d_model=128, n_layers=2, n_heads=4, dropout=0.0,
+                 max_timestep=64, state_kind="vector", state_dim=16, compute_dtype="float32")
+PAR_SMALL_B = 8
+PAR_STEPS = 2
+# JAX's tolerances for the data x seq step (tests/test_seq_composed.py):
+# loss, accuracy, every parameter after the steps.
+PAR_LOSS_ATOL, PAR_ACC_ATOL, PAR_PARAM_ATOL = 1e-5, 1e-6, 2e-5
+# The gloo world's gradients, summed over its ranks' blocks, against the
+# one-rank step's (tests/test_moe.py's tolerances for gradients): Adam and
+# the clip would hide a gradient scaled uniformly.
+PAR_GRAD_RTOL, PAR_GRAD_ATOL = 1e-5, 1e-6
+PAR_TIMED = (2, 10)  # flagship steps of each mode: warm, timed
+PAR_LONG = (16, 342)  # the long-context seq step: B, K (S = 1026)
+PAR_LONG_TIMED = (1, 3)
+# bf16: the ring's float32 softmax against the flash kernel's bf16 P
+PAR_LONG_LOSS_RTOL = 2e-2
+PAR_MOE = (64, 90, 512, 2048, 4)  # B, S, D, F, E: dt_rom's MoE FFN
+PAR_PIPE_MLP = (512, 2048, 8, 64)  # d, hidden, microbatches, rows each
+PAR_PIPE_DT = (4, 4)  # flagship blocks in float32: microbatches, windows each
+PAR_TOL_OF_MAX = 1e-5
+PAR_WORLD = (2, 2)  # data, model
+PAR_CHILD_S = 300
+
+
+def par_small_batch(device="cuda"):
+    B, K = PAR_SMALL_B, PAR_SMALL["context_len"]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    mask = torch.ones(B, K, dtype=torch.bool, device=device)
+    mask[0, -2:] = False
+    return (torch.rand(B, K, generator=g, device=device) * 10 - 5,
+            torch.randn(B, K, PAR_SMALL["state_dim"], generator=g, device=device),
+            torch.randint(0, 4, (B, K), generator=g, device=device),
+            torch.arange(K, device=device).repeat(B, 1), mask)
+
+
+def par_small_state(cfg, prepare=None, state_dict=None):
+    """A train state of the small config from SEED (or ``state_dict``);
+    ``prepare(model)`` shards it before the moments are made."""
+    from mmtrl_tpu_torch.algos.dt import DTTrainConfig, create_dt_state
+    from mmtrl_tpu_torch.ops.fused_optim import init_adam_state
+
+    state = create_dt_state(cfg, DTTrainConfig(batch_size=PAR_SMALL_B, total_steps=10,
+                                               warmup_steps=2), seed=SEED)
+    if state_dict is not None:
+        state.model.load_state_dict(state_dict, strict=True)
+    if prepare is not None:
+        prepare(state.model)
+        state.opt_state = init_adam_state(list(state.model.parameters()))
+    return state
+
+
+def par_run(step, state, batch, n):
+    metrics = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {name: p.detach() for name, p in state.model.named_parameters()}
+
+
+def par_errors(metrics, params, ref_metrics, ref_params, slicer=lambda name, t: t):
+    """(largest loss, accuracy and parameter distance) from the reference."""
+    loss = max(abs(a["dt/loss"] - b["dt/loss"]) for a, b in zip(metrics, ref_metrics))
+    acc = max(abs(a["dt/action_accuracy"] - b["dt/action_accuracy"])
+              for a, b in zip(metrics, ref_metrics))
+    param = max((params[n].float().cpu() - slicer(n, ref_params[n]).float().cpu())
+                .abs().max().item() for n in ref_params)
+    return loss, acc, param
+
+
+def parallel_small_checks(smi: str):
+    """(a1) The DP, TP, FSDP and seq steps on one rank against the plain
+    step, float32, two steps each; the flash launches of each."""
+    from mmtrl_tpu_torch.algos.dt import make_dt_train_step
+    from mmtrl_tpu_torch.algos.dt.train import dt_gradients
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+    from mmtrl_tpu_torch.parallel import make_mesh, shard_batch
+    from mmtrl_tpu_torch.parallel.seq_composed import (
+        make_dt_seq_train_step,
+        seq_cfg,
+        shard_dt_batch,
+    )
+    from mmtrl_tpu_torch.parallel.sharding import shard_dt_params, shard_fsdp_params
+
+    cfg = DTConfig(**PAR_SMALL)
+    batch = par_small_batch()
+    state = par_small_state(cfg)
+    init = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    ref_grads = dict(zip(init, dt_gradients(state.model, batch)[3]))
+    ref_metrics, ref_params = par_run(make_dt_train_step(cfg), state, batch, PAR_STEPS)
+    dp = make_mesh()
+    tp = make_mesh((1, 1), ("data", "model"))
+    sq = make_mesh((1, 1), ("data", "seq"))
+    scfg = seq_cfg(cfg, 1)
+    modes = {
+        "dp": (make_dt_train_step(cfg, dp), par_small_state(cfg), shard_batch(dp, batch)),
+        "tp": (make_dt_train_step(cfg, tp), par_small_state(cfg, lambda m: shard_dt_params(tp, m)),
+               shard_batch(tp, batch)),
+        "fsdp": (make_dt_train_step(cfg, dp),
+                 par_small_state(cfg, lambda m: shard_fsdp_params(dp, m, min_size=1)),
+                 shard_batch(dp, batch)),
+        "seq": (make_dt_seq_train_step(scfg, sq), par_small_state(scfg), shard_dt_batch(batch, sq)),
+    }
+    layers = cfg.n_layers * PAR_STEPS
+    for mode, (step, state, b) in modes.items():
+        plan = getattr(state.model, "shard_plan", None)
+        sharded = len(plan.specs) if plan is not None else 0
+        before = read_counts()
+        metrics, params = par_run(step, state, b, PAR_STEPS)
+        counts = counts_since(before)
+        expected = dict.fromkeys(counts, 0 if mode == "seq" else layers)
+        loss, acc, param = par_errors(metrics, params, ref_metrics, ref_params)
+        ok = (loss <= PAR_LOSS_ATOL and acc <= PAR_ACC_ATOL and param <= PAR_PARAM_ATOL
+              and counts == expected)
+        emit("parallel", check=f"{mode} step, one NCCL rank, vs the plain step",
+             config="small float32", steps=PAR_STEPS, losses=[m["dt/loss"] for m in metrics],
+             loss_err=loss, acc_err=acc, param_err=param, sharded_leaves=sharded,
+             launches=counts, expected_launches=expected, ok=ok, card=smi)
+        check(ok, f"the {mode} step disagrees with the plain step or launched {counts}")
+    return init, batch, ref_grads, ref_metrics, ref_params
+
+
+def parallel_flagship(smi: str):
+    """(a2) bench.py's flagship step through the plain, DP, TP and FSDP
+    steps on one rank: ms a step and 6 launches of each kernel a step."""
+    from mmtrl_tpu_torch.algos.dt import DTTrainConfig, create_dt_state, make_dt_train_step
+    from mmtrl_tpu_torch.algos.dt.data import random_buffer
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+    from mmtrl_tpu_torch.ops.fused_optim import init_adam_state
+    from mmtrl_tpu_torch.parallel import make_mesh, shard_batch
+    from mmtrl_tpu_torch.parallel.sharding import shard_dt_params, shard_fsdp_params
+
+    B, K = 128, 30
+    cfg = DTConfig(num_actions=4, context_len=K, d_model=512, n_layers=6, n_heads=4,
+                   dropout=0.1, max_timestep=64, ln_dtype="bfloat16")
+    buffer = random_buffer(16, 6144, torch.Generator(device="cuda").manual_seed(SEED))
+    dp, tp = make_mesh(), make_mesh((1, 1), ("data", "model"))
+    modes = {"plain": (None, None), "dp": (dp, None),
+             "tp": (tp, lambda m: shard_dt_params(tp, m)),
+             "fsdp": (dp, lambda m: shard_fsdp_params(dp, m))}
+    per_step = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), cfg.n_layers)
+    warm, timed = PAR_TIMED
+    rows = {mode: [] for mode in modes}
+    # in turns, forward then back: plain, dp, tp, fsdp, fsdp, tp, dp, plain
+    for mode in list(modes) + list(reversed(modes)):
+        mesh, prepare = modes[mode]
+        state = create_dt_state(cfg, DTTrainConfig(batch_size=B, total_steps=1000), seed=SEED)
+        if prepare is not None:
+            prepare(state.model)
+            state.opt_state = init_adam_state(list(state.model.parameters()))
+        step = make_dt_train_step(cfg, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.manual_seed(SEED)  # dropout
+        losses = []
+        start = read_counts()
+        for i in range(warm + timed):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            batch = buffer.sample(gen, B, K)
+            before = read_counts()
+            state, m = step(state, batch if mesh is None else shard_batch(mesh, batch))
+            after = read_counts()
+            check({k: after[k] - before[k] for k in after} == per_step,
+                  f"{mode} flagship step {i} launched {after} after {before}")
+            losses.append(m["dt/loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / timed
+        losses = [float(x) for x in losses]
+        rows[mode].append(ms)
+        emit("parallel", check=f"{mode} flagship step, one NCCL rank", config="bench.py flagship",
+             batch_size=B, context_len=K, steps_warm=warm, steps_timed=timed, step_ms=ms,
+             turn=len(rows[mode]), launches=counts_since(start),
+             launches_per_step=per_step, loss_first=losses[0], loss_last=losses[-1],
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+        check(all(math.isfinite(x) for x in losses), f"{mode}: non-finite loss")
+        del state
+    return rows
+
+
+def parallel_long(smi: str):
+    """(a3) The seq step with a ring of one rank at K = 342 (S = 1026)
+    against the flash DT step from the same weights: ms a step, zero flash
+    launches, the first losses within bf16's tolerance."""
+    from mmtrl_tpu_torch.algos.dt import DTTrainConfig, create_dt_state, make_dt_train_step
+    from mmtrl_tpu_torch.algos.dt.data import random_buffer
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+    from mmtrl_tpu_torch.parallel import make_mesh
+    from mmtrl_tpu_torch.parallel.seq_composed import make_dt_seq_train_step, seq_cfg
+
+    B, K = PAR_LONG
+    cfg = DTConfig(num_actions=4, context_len=K, d_model=512, n_layers=6, n_heads=4,
+                   dropout=0.0, max_timestep=64, ln_dtype="bfloat16")
+    tcfg = DTTrainConfig(batch_size=B, total_steps=1000)
+    buffer = random_buffer(16, 2048, torch.Generator(device="cuda").manual_seed(SEED))
+    batch = buffer.sample(torch.Generator(device="cuda").manual_seed(SEED), B, K)
+    sq = make_mesh((1, 1), ("data", "seq"))
+    scfg = seq_cfg(cfg, 1)
+    rows = {}
+    for mode, c, step in (("flash", cfg, make_dt_train_step(cfg)),
+                          ("seq ring", scfg, make_dt_seq_train_step(scfg, sq))):
+        state = create_dt_state(c, tcfg, seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        warm, timed = PAR_LONG_TIMED
+        losses = []
+        for i in range(warm + timed):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["dt/loss"])
+        torch.cuda.synchronize()
+        rows[mode] = dict(step_ms=1e3 * (time.perf_counter() - t0) / timed,
+                          loss_first=float(losses[0]), launches=counts_since(before),
+                          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del state
+    rel = abs(rows["seq ring"]["loss_first"] - rows["flash"]["loss_first"]) / abs(
+        rows["flash"]["loss_first"])
+    ok = (not any(rows["seq ring"]["launches"].values()) and rel <= PAR_LONG_LOSS_RTOL
+          and math.isfinite(rows["seq ring"]["loss_first"]))
+    emit("parallel", check="seq step, a ring of one rank, vs the flash step",
+         config="flagship bf16", batch_size=B, context_len=K, seq_len=3 * K, **{
+             k.replace(" ", "_"): v for k, v in rows.items()}, loss_rel_err=rel,
+         loss_rtol=PAR_LONG_LOSS_RTOL, ok=ok, card=smi)
+    check(ok, f"the long seq step: {rows}, loss rel err {rel}")
+    return rows
+
+
+def parallel_expert_pipeline(smi: str):
+    """(a4) The expert axis and the pipeline on one rank against their
+    one-device forms: values and gradients, zero flash launches (the MLP
+    stage); the pipeline over six flagship blocks, whose attention launches
+    the forward kernel."""
+    from mmtrl_tpu_torch.models.decision_transformer import Block
+    from mmtrl_tpu_torch.models.moe import moe_combine_weights, moe_ffn_dense
+    from mmtrl_tpu_torch.parallel import make_mesh, pipeline_apply, stack_stage_params
+    from mmtrl_tpu_torch.parallel.expert import expert_parallel_moe
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+
+    # the expert axis at dt_rom's MoE width
+    B, S, D, F, E = PAR_MOE
+    x, logits = rand(B, S, D), rand(B, S, E)
+    ws = [rand(E, D, F, scale=0.02), rand(E, F, scale=0.02), rand(E, F, D, scale=0.02),
+          rand(E, D, scale=0.02)]
+    combine = moe_combine_weights(logits, 2)
+    mesh = make_mesh((1,), ("expert",))
+    sides = {}
+    before = read_counts()
+    for name, fn in (("dense", lambda x, *w: moe_ffn_dense(x, combine, *w)),
+                     ("expert", lambda x, *w: expert_parallel_moe(x, combine, *w, mesh))):
+        args = [t.detach().requires_grad_() for t in [x] + ws]
+        y = fn(*args)
+        grads = torch.autograd.grad((y ** 2).mean(), args)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fn(x, *ws), 10)
+        sides[name] = (y.detach(), grads, ms)
+    moe_launches = counts_since(before)
+    y_err = rel(sides["expert"][0], sides["dense"][0])
+    g_err = max(rel(a, b) for a, b in zip(sides["expert"][1], sides["dense"][1]))
+    ok = y_err <= PAR_TOL_OF_MAX and g_err <= PAR_TOL_OF_MAX and not any(moe_launches.values())
+    emit("parallel", check="expert axis, one rank, vs moe_ffn_dense", shape=[B, S, D, F, E],
+         value_err_of_max=y_err, grad_err_of_max=g_err, ms=sides["expert"][2],
+         plain_ms=sides["dense"][2], launches=moe_launches, ok=ok, card=smi)
+    check(ok, f"the expert axis disagrees: {y_err}, {g_err}, {moe_launches}")
+
+    # the pipeline of an MLP stage
+    d, hidden, M, rows = PAR_PIPE_MLP
+    mesh = make_mesh((1,), ("pipe",))
+    params = {"w1": rand(d, hidden, scale=d ** -0.5), "b1": rand(hidden, scale=0.1),
+              "w2": rand(hidden, d, scale=hidden ** -0.5), "b2": rand(d, scale=0.1)}
+    xs = rand(M, rows, d)
+
+    def mlp(p, x):
+        return torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    before = read_counts()
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    out = pipeline_apply(mlp, leaves, xs, mesh)
+    grads = torch.autograd.grad((out ** 2).sum(), list(leaves.values()))
+    ref = mlp(leaves, xs)
+    ref_grads = torch.autograd.grad((ref ** 2).sum(), list(leaves.values()))
+    with torch.no_grad():
+        ms, plain_ms = cuda_ms(lambda: pipeline_apply(mlp, params, xs, mesh), 10), \
+            cuda_ms(lambda: mlp(params, xs), 10)
+    mlp_launches = counts_since(before)
+    errs = (rel(out.detach(), ref.detach()), max(rel(a, b) for a, b in zip(grads, ref_grads)))
+    ok = max(errs) <= PAR_TOL_OF_MAX and not any(mlp_launches.values())
+    emit("parallel", check="pipeline, one rank, MLP stage vs sequential",
+         shape=[M, rows, d, hidden],
+         value_err_of_max=errs[0], grad_err_of_max=errs[1], ms=ms, plain_ms=plain_ms,
+         launches=mlp_launches, ok=ok, card=smi)
+    check(ok, f"the pipeline disagrees: {errs}, {mlp_launches}")
+
+    # the pipeline over the flagship's six blocks, float32
+    cfg = flagship_cfg("float32", dropout=0.0)
+    torch.manual_seed(SEED)
+    blocks = [Block(cfg, torch.device("cuda")).eval() for _ in range(cfg.n_layers)]
+    stacked = stack_stage_params([dict(b.named_parameters()) for b in blocks])
+    M, W = PAR_PIPE_DT
+    xs = rand(M, W, cfg.seq_len, cfg.d_model)
+
+    def stage(p, x):
+        for i in range(cfg.n_layers):
+            x, _ = torch.func.functional_call(blocks[0], {k: v[i] for k, v in p.items()}, (x,))
+        return x
+
+    with torch.no_grad():
+        before = read_counts()
+        out = pipeline_apply(stage, stacked, xs, mesh)
+        dt_launches = counts_since(before)
+        ref = xs.reshape(M * W, cfg.seq_len, cfg.d_model)
+        for b in blocks:
+            ref, _ = b(ref)
+        ref = ref.reshape(xs.shape)
+    err = rel(out, ref)
+    expected = {"flash_fwd": M * cfg.n_layers, "flash_dq": 0, "flash_dkv": 0}
+    ok = err <= PAR_TOL_OF_MAX and dt_launches == expected
+    emit("parallel", check="pipeline, one rank, six flagship blocks vs sequential",
+         shape=[M, W, cfg.seq_len, cfg.d_model], value_err_of_max=err, launches=dt_launches,
+         expected_launches=expected, ok=ok, card=smi)
+    check(ok, f"the DT-block pipeline disagrees: {err}, {dt_launches}")
+
+
+def parallel_world(smi: str, tmp: str, init, batch, ref_grads, ref_metrics, ref_params):
+    """(b) A 2 data x 2 model gloo world of four processes on the card: its
+    summed gradients at the initial weights and its float32 step after two
+    steps against (a1)'s one-rank plain step."""
+    import os
+
+    from mmtrl_tpu_torch.parallel.sharding import tp_slice
+
+    inputs = os.path.join(tmp, "parallel_inputs.pt")
+    torch.save({"state_dict": {n: t.cpu() for n, t in init.items()},
+                "batch": [t.cpu() for t in batch]}, inputs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(tmp, "parallel_store")
+    world = PAR_WORLD[0] * PAR_WORLD[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                               "--parallel-child", str(r), store, inputs, tmp], cwd=here)
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=PAR_CHILD_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    check(codes == [0] * world, f"the gloo world's ranks exited with {codes}")
+    tp = PAR_WORLD[1]
+    layers = PAR_SMALL["n_layers"] * PAR_STEPS
+    for r in range(world):
+        res = torch.load(os.path.join(tmp, f"parallel_rank{r}.pt"), weights_only=True)
+        grad = 0.0  # the largest |g - want| - rtol |want|, held to the atol
+        for n, g in ref_grads.items():
+            want = tp_slice(n, g, tp, res["model_index"]).cpu()
+            excess = (res["grads"][n] - want).abs() - PAR_GRAD_RTOL * want.abs()
+            grad = max(grad, excess.max().item())
+        loss, acc, param = par_errors(
+            res["metrics"], res["params"], ref_metrics, ref_params,
+            lambda n, t: tp_slice(n, t, tp, res["model_index"]))
+        expected = dict.fromkeys(res["launches"], layers)
+        ok = (grad <= PAR_GRAD_ATOL and loss <= PAR_LOSS_ATOL and acc <= PAR_ACC_ATOL
+              and param <= PAR_PARAM_ATOL and res["launches"] == expected
+              and res["device"] == "cuda")
+        emit("parallel", check="2 data x 2 model gloo world on the card vs the one-rank step",
+             rank=r, model_index=res["model_index"], grad_err_over_rtol=grad, loss_err=loss,
+             acc_err=acc,
+             param_err=param, launches=res["launches"], expected_launches=expected,
+             step_ms=res["step_ms"], world_wall_s=wall, ok=ok, card=smi)
+        check(ok, f"gloo rank {r} disagrees with the one-rank step")
+
+
+def parallel_child(rank: str, store: str, inputs: str, out_dir: str) -> None:
+    """One rank of (b): gloo on the card, the TP slices of the small config
+    over (data, model) = PAR_WORLD, two steps; writes its results."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from mmtrl_tpu_torch.algos.dt import make_dt_train_step
+    from mmtrl_tpu_torch.algos.dt.train import dt_gradients
+    from mmtrl_tpu_torch.models.decision_transformer import DTConfig
+    from mmtrl_tpu_torch.parallel import make_mesh, shard_batch
+    from mmtrl_tpu_torch.parallel.mesh import replicate
+    from mmtrl_tpu_torch.parallel.sharding import shard_dt_params
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=PAR_WORLD[0] * PAR_WORLD[1],
+                            timeout=datetime.timedelta(seconds=120))
+    data = torch.load(inputs, weights_only=True)
+    mesh = make_mesh(PAR_WORLD, ("data", "model"))
+    cfg = DTConfig(**PAR_SMALL)
+
+    def prepare(model):
+        # every rank but the first starts from other weights; the broadcast
+        # (gloo on CUDA tensors) gives each the first rank's
+        if rank:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(1.0)
+        replicate(mesh, list(model.parameters()))
+        shard_dt_params(mesh, model)
+
+    state = par_small_state(cfg, prepare, {n: t.cuda() for n, t in data["state_dict"].items()}
+                            if rank == 0 else None)
+    batch = shard_batch(mesh, [t.cuda() for t in data["batch"]])
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = {n: g.cpu() for n, g in zip(names, dt_gradients(state.model, batch, mesh)[3])}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, params = par_run(make_dt_train_step(cfg, mesh), state, batch, PAR_STEPS)
+    torch.cuda.synchronize()
+    torch.save({"metrics": metrics, "grads": grads,
+                "params": {n: p.cpu() for n, p in params.items()},
+                "model_index": mesh.index("model"), "launches": read_counts(),
+                "device": next(iter(params.values())).device.type,
+                "step_ms": 1e3 * (time.perf_counter() - t0) / PAR_STEPS},
+               os.path.join(out_dir, f"parallel_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_checks(smi: str, tmp: str):
+    import os
+
+    import torch.distributed as dist
+
+    t_phase, seconds = time.perf_counter(), {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        small = parallel_small_checks(smi)
+        seconds["small"] = time.perf_counter() - t0
+        for step in (parallel_flagship, parallel_long, parallel_expert_pipeline):
+            t0 = time.perf_counter()
+            step(smi)
+            seconds[step.__name__] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    parallel_world(smi, tmp, *small)
+    seconds["gloo_world"] = time.perf_counter() - t0
+    emit("parallel", seconds=time.perf_counter() - t_phase, by_step=seconds, card=smi)
+
+
+def phase_parallel(smi: str, tmp: str):
+    """The DT's multi-device axes (``parallel/``) on the card.  (a) In a
+    one-rank NCCL group: the DP, TP (data x model (1, 1)), FSDP (every leaf
+    sharded) and seq (a ring of one rank) steps of a small float32 config
+    against the plain step, two steps each, within JAX's tolerances, the
+    seq step launching no kernel and each other 2 of each a step;
+    ``bench.py``'s flagship step (B = 128, K = 30, bf16, dropout 0.1)
+    through the plain, DP, TP and FSDP steps, timed, 6 launches of each
+    kernel a step; the seq step at K = 342 (S = 1026) against the flash
+    step, timed, no launch; the expert axis at dt_rom's MoE width and the
+    pipeline of an MLP stage against their one-device forms (values and
+    gradients, no launch) and over the flagship's six blocks in float32.
+    (b) A 2 data x 2 model gloo world of four processes on the card (gloo's
+    all-reduce and broadcast of CUDA tensors), every rank but the first
+    starting from other weights and broadcast the first's, equal after two
+    steps to (a)'s one-rank step."""
+    restoring_flags(parallel_checks, smi, tmp)
+
+
 def phase_timing(smi: str):
     import torch.nn.functional as F
 
@@ -4600,6 +5101,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--family-child"]:  # the ppo_family phase's child process
         family_child(*sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--parallel-child"]:  # a rank of the parallel phase's world
+        parallel_child(*sys.argv[2:])
+        return 0
     smi = card()
     t_start = time.perf_counter()
     native = native_build_in_background()
@@ -4652,6 +5156,9 @@ def main() -> int:
         run_tools_launches = read_counts()
         check(not any(run_tools_launches.values()),
               f"the run_tools phase launched attention kernels: {run_tools_launches}")
+        reset_counts()
+        phase_parallel(smi, tmp)
+        parallel_launches = read_counts()
     timing = phase_timing(smi)
     sources = {"flash_fwd": ("flash_fwd.cu", 52), "flash_dq": ("flash_dq.cu", 145),
                "flash_dkv": ("flash_dkv.cu", 188)}
@@ -4684,6 +5191,10 @@ def main() -> int:
             "host_loops_launches": host_loops_launches[name],
             # the run tooling: journal, wandb_local, GIFs, tuner, phase timer
             "run_tools_launches": run_tools_launches[name],
+            # the multi-device axes on one NCCL rank: the DP, TP and FSDP
+            # steps launch, the ring, seq step, expert axis and MLP pipeline
+            # do not, the pipeline over DT blocks launches the forward
+            "parallel_launches": parallel_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

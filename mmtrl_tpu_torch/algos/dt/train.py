@@ -10,6 +10,18 @@ seed it with ``torch.manual_seed``.  With MoE blocks the loss adds
 ``moe_aux_coef`` times the blocks' mean router load-balance loss, reported
 as ``dt/moe_aux``.  Attention goes through the CUDA forward and backward
 kernels on the card (``ops/flash_attention.py``).
+
+With a mesh (``parallel/mesh.py``) the step is data parallel: each rank
+passes its shard of the batch over ``data`` (``parallel.shard_batch``), the
+masked mean's numerator and denominator and the accuracy's hits are summed
+over ``data``, and so are the gradients, in one all-reduce, before the
+clipped AdamW, whose norm is global.  The result is the one-rank step on
+the whole batch.  A model sharded by ``parallel/sharding.py`` adds tensor
+parallelism over ``model`` (``shard_dt_params``: the blocks hold their
+collectives) or FSDP over ``data`` (``shard_fsdp_params``: each sharded
+parameter is all-gathered before the forward and its gradient comes back
+reduce-scattered, already summed); the global norm then sums each sharded
+leaf's squares over its axis and counts each replicated leaf once.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ from mmtrl_tpu_torch.ops.fused_optim import (
     fused_clip_adamw,
     init_adam_state,
 )
+from mmtrl_tpu_torch.parallel.collectives import all_gather, all_reduce_list, psum
+from mmtrl_tpu_torch.parallel.mesh import DATA_AXIS, Axes, Mesh
 
 Batch = Tuple[torch.Tensor, ...]  # (rtg, states, actions, timesteps, mask)
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -109,46 +123,99 @@ def create_dt_state(
 
 
 def dt_loss(
-    logits: torch.Tensor, actions: torch.Tensor, mask: torch.Tensor
+    logits: torch.Tensor, actions: torch.Tensor, mask: torch.Tensor,
+    mesh: Optional[Mesh] = None, axes: Axes = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy): the masked mean NLL of the logged actions and the
     masked share of argmax hits (first index on ties, as ``jnp.argmax``),
-    both over max(mask.sum(), 1)."""
+    both over max(mask.sum(), 1).  With a mesh the sums run over the ranks
+    of ``axes`` too (``psum``: each rank's gradient keeps its own terms)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, actions[..., None].long())[..., 0]
     m = mask.float()
-    denom = m.sum().clamp(min=1.0)
-    loss = (nll * m).sum() / denom
-    acc = ((logits.argmax(dim=-1) == actions).float() * m).sum() / denom
-    return loss, acc
+    hits = ((logits.argmax(dim=-1) == actions).float() * m).sum()
+    num, den = (nll * m).sum(), m.sum()
+    if mesh is not None:
+        num, den, hits = (psum(t, mesh, axes) for t in (num, den, hits))
+    denom = den.clamp(min=1.0)
+    return num / denom, hits / denom
 
 
-def make_dt_train_step(model_cfg: DTConfig) -> Callable:
+def sharded_grad_norm(model, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The global norm of a sharded model's gradients (``ShardPlan``): each
+    sharded leaf's squares summed over its axis, each replicated leaf's
+    counted once; None for a model that is not sharded."""
+    plan = getattr(model, "shard_plan", None)
+    if plan is None:
+        return None
+    sq = {True: grads[0].new_zeros((), dtype=torch.float32),
+          False: grads[0].new_zeros((), dtype=torch.float32)}
+    for (name, _), g in zip(model.named_parameters(), grads):
+        g = g.float()
+        sq[name in plan.specs] = sq[name in plan.specs] + (g * g).sum()
+    [sharded] = all_reduce_list([sq[True]], plan.mesh, plan.axis)
+    return torch.sqrt(sharded + sq[False])
+
+
+def dt_gradients(model: DecisionTransformer, batch: Batch, mesh: Optional[Mesh] = None,
+                 axes: Axes = DATA_AXIS):
+    """(loss, accuracy, MoE aux or None, gradients in ``model.parameters()``
+    order) of one forward in train mode and its backward.  With ``mesh``
+    the batch is this rank's block over ``axes``: the loss's sums and the
+    gradients are summed over them (the gradients in one all-reduce; a
+    sharded model's FSDP leaves come back summed by their reduce-scatter),
+    so every rank holds those of the whole batch.  The MoE aux loss of a
+    sharded batch is not ported (ROADMAP A.8)."""
+    rtg, states, actions, timesteps, mask = batch
+    moe = bool(model.cfg.moe_experts)
+    if moe and mesh is not None:
+        raise NotImplementedError("the MoE aux loss over a data-parallel batch (ROADMAP A.8)")
+    model.train()
+    named = list(model.named_parameters())
+    plan = getattr(model, "shard_plan", None)
+    gathered = plan.specs if plan is not None and plan.gather else {}
+    inputs = (rtg, states, actions, timesteps)
+    if gathered:  # FSDP: the whole parameters
+        full = {n: all_gather(p, plan.mesh, plan.axis, plan.dim(n)) if n in gathered else p
+                for n, p in named}
+        logits, moe_aux = torch.func.functional_call(model, full, inputs, {"return_aux": True})
+    else:
+        logits, moe_aux = model(*inputs, return_aux=True)
+    loss, acc = dt_loss(logits, actions, mask, mesh, axes)
+    if moe:
+        loss = loss + model.cfg.moe_aux_coef * moe_aux
+    grads = list(torch.autograd.grad(loss, [p for _, p in named]))
+    if mesh is not None:
+        summed = [i for i, (n, _) in enumerate(named) if n not in gathered]
+        for i, g in zip(summed, all_reduce_list([grads[i] for i in summed], mesh, axes)):
+            grads[i] = g
+    return loss.detach(), acc, moe_aux.detach() if moe else None, grads
+
+
+def make_dt_train_step(model_cfg: DTConfig, mesh: Optional[Mesh] = None,
+                       axes: Axes = DATA_AXIS) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: forward in train
     mode, masked NLL (plus the MoE aux term), backward, one fused clip-AdamW
     update in place.  The metrics are device tensors keyed ``dt/loss`` and
     ``dt/action_accuracy``, and ``dt/moe_aux`` with MoE.  ``model_cfg`` is
-    the JAX signature's; the state's model and its config are what run."""
+    the JAX signature's; the state's model and its config are what run.
+    With ``mesh`` the batch is this rank's shard over ``axes`` and the step
+    is data parallel (module docstring); the sequence-parallel step
+    (``parallel/seq_composed.py``) passes ``("data", "seq")``."""
+    if mesh is not None:
+        mesh.axes(axes)
 
     def train_step(state: DTTrainState, batch: Batch) -> Tuple[DTTrainState, Dict]:
-        rtg, states, actions, timesteps, mask = batch
         model, tcfg = state.model, state.train_cfg
-        model.train()
-        params: List[torch.Tensor] = list(model.parameters())
-        logits, moe_aux = model(rtg, states, actions, timesteps, return_aux=True)
-        loss, acc = dt_loss(logits, actions, mask)
-        moe = bool(model.cfg.moe_experts)
-        if moe:
-            loss = loss + model.cfg.moe_aux_coef * moe_aux
-        grads = torch.autograd.grad(loss, params)
+        loss, acc, moe_aux, grads = dt_gradients(model, batch, mesh, axes)
         state.opt_state = fused_clip_adamw(
-            params, grads, state.opt_state, state.schedule,
+            list(model.parameters()), grads, state.opt_state, state.schedule,
             b1=tcfg.beta1, b2=tcfg.beta2, weight_decay=tcfg.weight_decay,
-            max_grad_norm=tcfg.max_grad_norm,
+            max_grad_norm=tcfg.max_grad_norm, grad_norm=sharded_grad_norm(model, grads),
         )
-        metrics = {"dt/loss": loss.detach(), "dt/action_accuracy": acc}
-        if moe:
-            metrics["dt/moe_aux"] = moe_aux.detach()
+        metrics = {"dt/loss": loss, "dt/action_accuracy": acc}
+        if moe_aux is not None:
+            metrics["dt/moe_aux"] = moe_aux
         return state, metrics
 
     return train_step

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
+from mmtrl_tpu_torch.core.distributed import maybe_initialize_distributed
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.utils.evaluate import evaluate_actions
 from mmtrl_tpu_torch.utils.resume import journal_run
@@ -44,6 +45,7 @@ def run_offpolicy(algo: Any, cfg: Any, args, device: torch.device,
     iteration run, the global step, the last logged return, the final
     runner, one row per logged iteration (wall seconds, SPS, the metrics,
     peak device memory) and, with ``eval_setup``, the greedy evaluation."""
+    maybe_initialize_distributed(device)
     run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
     journal_run(run_name, sys.argv, "running")

@@ -23,6 +23,7 @@ import torch
 
 from mmtrl_tpu_torch.algos.ppo.core import lr_schedule
 from mmtrl_tpu_torch.core.checkpoint import load_run, save_run
+from mmtrl_tpu_torch.core.distributed import maybe_initialize_distributed
 from mmtrl_tpu_torch.core.metrics import MetricsWriter
 from mmtrl_tpu_torch.utils.profiling import start_trace
 from mmtrl_tpu_torch.utils.resume import journal_run
@@ -53,6 +54,7 @@ def run_training(algo: Any, cfg: Any, args, device: torch.device,
     script does.  Returns a summary dict with the final runner, one row per
     update (wall seconds, SPS, metrics, peak device memory) and the GIFs
     written."""
+    maybe_initialize_distributed(device)
     run_name = run_name or f"{args.env_id}__{args.exp_name}__{args.seed}__{int(time.time())}"
     writer = MetricsWriter(run_name, args)
     journal_run(run_name, sys.argv, "running")

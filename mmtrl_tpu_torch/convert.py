@@ -34,7 +34,7 @@ whole train states (actor, critics, targets, each Adam state, and SAC's
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,13 +42,25 @@ import torch
 from mmtrl_tpu_torch.ops.fused_optim import ScaleByAdamState
 
 
+# The port's weight of a flax kernel of each rank: its dimension i is the
+# kernel's dimension _KERNEL_TO_PORT[rank][i] (Dense (in, out) -> (out, in),
+# Conv HWIO -> OIHW).
+_KERNEL_TO_PORT = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def kernel_port_dims(ndim: int) -> Tuple[int, ...]:
+    """For each dimension of a flax kernel of rank ``ndim``, the port
+    weight's dimension that holds it."""
+    if ndim not in _KERNEL_TO_PORT:
+        raise ValueError(f"kernel of rank {ndim}")
+    return tuple(_KERNEL_TO_PORT[ndim].index(d) for d in range(ndim))
+
+
 def _leaf(name: str, value: np.ndarray):
     if name == "kernel":
-        if value.ndim == 2:
-            return "weight", value.T
-        if value.ndim == 4:
-            return "weight", value.transpose(3, 2, 0, 1)
-        raise ValueError(f"kernel of rank {value.ndim}")
+        if value.ndim not in _KERNEL_TO_PORT:
+            raise ValueError(f"kernel of rank {value.ndim}")
+        return "weight", value.transpose(_KERNEL_TO_PORT[value.ndim])
     if name in ("embedding", "scale"):
         return "weight", value
     if name in ("bias", "log_std") or name.startswith("experts_"):
@@ -56,23 +68,71 @@ def _leaf(name: str, value: np.ndarray):
     raise ValueError(f"unknown flax leaf {name!r}")
 
 
-def dt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of a flax tree of numpy arrays (``{'params': ...}`` or the
-    inner tree), for the DT or any of its submodules."""
+def _flax_leaves(params: Mapping[str, Any]):
+    """(state-dict name, flax leaf name, float32 array in flax's layout) of
+    every leaf of a flax tree (``{'params': ...}`` or the inner tree)."""
     if set(params) == {"params"}:
         params = params["params"]
-    out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], prefix: str):
         for key, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{key}.")
+                yield from walk(value, f"{prefix}{key}.")
             else:
-                name, array = _leaf(key, np.asarray(value, dtype=np.float32))
-                out[prefix + name] = torch.tensor(array)
+                array = np.asarray(value, dtype=np.float32)
+                yield prefix + _leaf(key, array)[0], key, array
 
-    walk(params, "")
+    yield from walk(params, "")
+
+
+def dt_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of a flax tree of numpy arrays (``{'params': ...}`` or the
+    inner tree), for the DT or any of its submodules."""
+    return {name: torch.tensor(_leaf(key, array)[1])
+            for name, key, array in _flax_leaves(params)}
+
+
+def dt_tp_params_from_flax(params: Mapping[str, Any], tp: int,
+                           index: int) -> Dict[str, torch.Tensor]:
+    """Rank ``index``'s state dict of a DT under ``tp``-way tensor
+    parallelism (``parallel/sharding.py::shard_dt_params``)."""
+    from mmtrl_tpu_torch.parallel.sharding import tp_slice
+
+    return {name: tp_slice(name, t, tp, index)
+            for name, t in dt_params_from_flax(params).items()}
+
+
+def dt_fsdp_params_from_flax(params: Mapping[str, Any], axis_size: int, index: int,
+                             min_size: int = 2**14) -> Dict[str, torch.Tensor]:
+    """Rank ``index``'s state dict of a DT under FSDP over ``axis_size``
+    ranks (``parallel/sharding.py::shard_fsdp_params``): JAX's rule picks
+    the dimension on flax's layout, which the leaf's transpose maps to the
+    port's."""
+    from mmtrl_tpu_torch.parallel.sharding import fsdp_dim
+
+    out = {}
+    for name, key, array in _flax_leaves(params):
+        tensor = torch.tensor(_leaf(key, array)[1])
+        d = fsdp_dim(array.shape, axis_size, min_size)
+        if d is not None:
+            dim = kernel_port_dims(array.ndim)[d] if key == "kernel" else d
+            tensor = tensor.chunk(axis_size, dim)[index].contiguous()
+        out[name] = tensor
     return out
+
+
+def stage_params_from_flax(stacked: Mapping[str, Any], stage: int) -> List[Dict[str, torch.Tensor]]:
+    """The state dicts of stage ``stage``'s layers, from a flax tree whose
+    leaves stack (stage, layer, ...) as JAX's ``stack_stage_params`` twice
+    over builds them: each pipeline rank's part."""
+    shapes = []
+    tree = _map_arrays(lambda a: shapes.append(np.shape(a)) or np.asarray(a)[stage], stacked)
+    return [dt_params_from_flax(_map_arrays(lambda a: a[i], tree))
+            for i in range(shapes[0][1])]
+
+
+def _map_arrays(fn, tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _map_arrays(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
 
 
 def adam_state_from_flax(count: Any, mu: Mapping[str, Any], nu: Mapping[str, Any],

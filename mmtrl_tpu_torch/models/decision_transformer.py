@@ -18,8 +18,23 @@ so with ``remat`` the recomputed forward draws the same masks.  With
 (module ``moe``); every block returns its router's load-balance loss beside
 its output, so a remat's recompute records nothing twice, and
 ``forward(..., return_aux=True)`` gives their mean over the blocks, the
-``moe_aux`` that JAX sows.  ``seq_axis`` (sequence-parallel attention) is
-not ported yet.
+``moe_aux`` that JAX sows.
+
+Two multi-device modes run inside the modules, on a mesh that
+``DecisionTransformer.use_mesh`` hands them (``parallel/mesh.py``):
+
+- with ``cfg.seq_axis`` set, the tokens are this rank's contiguous chunk of
+  the sequence and attention is the ring over that axis
+  (``parallel/ring_attention.py``), causal over global positions, as JAX's
+  model does under ``shard_map``; every other op is pointwise over tokens.
+  The parameter tree is the dense model's, so a dense state dict loads into
+  the sequence-sharded model and back;
+- after ``parallel/sharding.py::shard_dt_params`` each attention and MLP
+  runs Megatron's tensor parallelism over the mesh's ``model`` axis: the
+  replicated input enters through ``enter``, the column-parallel ``qkv``
+  and ``fc`` give this rank's heads and hidden units, and the row-parallel
+  ``out`` and ``proj`` products are summed with ``psum`` before their
+  replicated biases are added, once.
 """
 
 from __future__ import annotations
@@ -36,6 +51,9 @@ from mmtrl_tpu_torch import DeviceLike, resolve_device
 from mmtrl_tpu_torch.models.common import AtariTower, Dense
 from mmtrl_tpu_torch.models.moe import MoEFFN
 from mmtrl_tpu_torch.ops.flash_attention import causal_flash_attention
+from mmtrl_tpu_torch.parallel.collectives import enter, psum
+from mmtrl_tpu_torch.parallel.mesh import MODEL_AXIS
+from mmtrl_tpu_torch.parallel.ring_attention import ring_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -127,7 +145,18 @@ class MultimodalStateEncoder(nn.Module):
         return self.proj(fused)
 
 
+def row_parallel(layer: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel ``Dense``: this rank's input columns' product, summed
+    over the ``model`` axis, then the replicated bias, once (added before
+    the sum, it would count once for every rank)."""
+    y = psum(F.linear(x, layer.weight.to(x.dtype)), mesh, MODEL_AXIS)
+    return y + layer.bias.to(x.dtype)
+
+
 class CausalSelfAttention(nn.Module):
+    mesh = None  # set by DecisionTransformer.use_mesh
+    tensor_parallel = False  # set by parallel.sharding.shard_dt_params
+
     def __init__(self, cfg: DTConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
@@ -137,18 +166,33 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, D = x.shape
-        H = self.cfg.n_heads
-        q, k, v = self.qkv(x).split(D, dim=-1)  # contiguous thirds, as jnp.split
+        cfg = self.cfg
+        tp = self.tensor_parallel
+        if tp:
+            x = enter(x, self.mesh, MODEL_AXIS)
+        width = self.qkv.weight.shape[0] // 3  # D, or this rank's D / tp
+        heads_here = cfg.n_heads * width // D
+        q, k, v = self.qkv(x).split(width, dim=-1)  # contiguous thirds, as jnp.split
 
-        def heads(t):  # (B, S, D) -> (B, H, S, hd)
-            return t.reshape(B, S, H, D // H).transpose(1, 2).contiguous()
+        def heads(t):  # (B, S, width) -> (B, heads_here, S, hd)
+            return t.reshape(B, S, heads_here, D // cfg.n_heads).transpose(1, 2).contiguous()
 
-        o = causal_flash_attention(heads(q), heads(k), heads(v))
-        o = o.transpose(1, 2).reshape(B, S, D)
-        return self.drop(self.out(o))
+        if cfg.seq_axis is not None:
+            if self.mesh is None:
+                raise ValueError("seq_axis needs a mesh: call DecisionTransformer.use_mesh")
+            o = ring_attention(heads(q), heads(k), heads(v), self.mesh, cfg.seq_axis,
+                               causal=True)
+        else:
+            o = causal_flash_attention(heads(q), heads(k), heads(v))
+        o = o.transpose(1, 2).reshape(B, S, width)
+        o = row_parallel(self.out, o, self.mesh) if tp else self.out(o)
+        return self.drop(o)
 
 
 class Block(nn.Module):
+    mesh = None  # set by DecisionTransformer.use_mesh
+    tensor_parallel = False  # set by parallel.sharding.shard_dt_params
+
     def __init__(self, cfg: DTConfig, device: torch.device):
         super().__init__()
         ln_dtype = _dtype(cfg.ln_dtype)
@@ -172,6 +216,9 @@ class Block(nn.Module):
         aux = None
         if hasattr(self, "moe"):
             h, aux = self.moe(h)
+        elif self.tensor_parallel:
+            h = F.gelu(self.fc(enter(h, self.mesh, MODEL_AXIS)), approximate="tanh")
+            h = row_parallel(self.proj, h, self.mesh)
         else:
             h = self.proj(F.gelu(self.fc(h), approximate="tanh"))  # flax gelu is tanh
         return x + self.drop(h), aux
@@ -183,8 +230,6 @@ class DecisionTransformer(nn.Module):
 
     def __init__(self, cfg: DTConfig, device: DeviceLike = None, state_channels: int = 2):
         super().__init__()
-        if cfg.seq_axis is not None:
-            raise NotImplementedError("sequence-parallel attention is not ported yet")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = _dtype(cfg.compute_dtype)
@@ -206,6 +251,14 @@ class DecisionTransformer(nn.Module):
             self.add_module(f"block_{i}", Block(cfg, device))
         self.ln_f = LayerNorm(d, _dtype(cfg.ln_dtype), device)
         self.action_head = Dense(d, cfg.num_actions, 0.01, device=device)
+
+    def use_mesh(self, mesh) -> "DecisionTransformer":
+        """Hands ``mesh`` to every block and attention: the ring of
+        ``cfg.seq_axis`` and tensor parallelism run over its axes."""
+        for module in self.modules():
+            if isinstance(module, (Block, CausalSelfAttention)):
+                module.mesh = mesh
+        return self
 
     def forward(
         self,

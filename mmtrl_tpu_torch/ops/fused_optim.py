@@ -68,13 +68,17 @@ def fused_clip_adamw(
     eps: float = 1e-8,
     weight_decay: float = 1e-4,
     max_grad_norm: Optional[float] = 0.25,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> ScaleByAdamState:
     """One clipped AdamW step: updates ``params`` in place and returns the
-    next state.  ``learning_rate`` is a float or a schedule of the count."""
+    next state.  ``learning_rate`` is a float or a schedule of the count.
+    ``grad_norm`` is the global norm when the caller computes it, as a step
+    whose parameters are shards over several ranks does; by default it is
+    ``global_norm(grads)``."""
     if max_grad_norm is None:
         scale = 1.0
     else:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.where(g_norm < max_grad_norm, 1.0, max_grad_norm / g_norm)
     count = torch.where(state.count < INT32_MAX, state.count + 1, state.count)
     lr = learning_rate(state.count) if callable(learning_rate) else learning_rate

@@ -266,15 +266,53 @@ def test_dt_is_causal():
     "change", [dict(moe_experts=4), dict(seq_axis="seq", seq_axis_size=2)]
 )
 def test_unported_options_raise(change):
-    """Sequence-parallel attention is not ported yet; MoE FFNs are (since
-    the cartridge slice), so that config builds a ``moe`` in every block."""
+    """What is still unported of each option raises, naming ROADMAP A.8:
+    the MoE aux loss over a sharded batch, in the data-parallel step and
+    in the sequence-parallel step."""
+    from mmtrl_tpu_torch.algos.dt.train import DTTrainConfig, create_dt_state, make_dt_train_step
+    from mmtrl_tpu_torch.parallel import make_mesh
+    from mmtrl_tpu_torch.parallel.seq_composed import make_dt_seq_train_step
+
+    cfg = DTConfig(**dict(dataclasses.asdict(TINY), **dict(change, moe_experts=4)))
+    if cfg.seq_axis:
+        cfg = dataclasses.replace(cfg, seq_axis_size=1)
+        step = make_dt_seq_train_step(cfg, make_mesh((1, 1), ("data", "seq")))
+    else:
+        step = make_dt_train_step(cfg, make_mesh())
+    state = create_dt_state(cfg, DTTrainConfig(batch_size=2), device="cpu")
+    batch = [torch.from_numpy(x) for x in _batch(0, TINY, 2)]
+    batch[2], batch[3] = batch[2].long(), batch[3].long()
+    batch.append(torch.ones(batch[0].shape))  # mask
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        step(state, batch)
+
+
+@pytest.mark.parametrize(
+    "change", [dict(moe_experts=4), dict(seq_axis="seq", seq_axis_size=2)]
+)
+def test_moe_and_seq_axis_options_build(change):
+    """Both options are ported: MoE FFNs (since the cartridge slice) build
+    a ``moe`` in every block; sequence-parallel attention (since the
+    multi-device slice) builds the dense model's parameter tree, raises
+    without a mesh, and on a one-rank ``seq`` mesh (a ring of one chunk)
+    gives the dense model's logits.  The many-rank ring is held against
+    JAX's in ``tests/test_torch_parallel.py``."""
+    from mmtrl_tpu_torch.parallel import make_mesh
+
     cfg = DTConfig(**dict(dataclasses.asdict(TINY), **change))
+    model = DecisionTransformer(cfg, device="cpu")
     if cfg.moe_experts:
-        model = DecisionTransformer(cfg, device="cpu")
         assert all(hasattr(getattr(model, f"block_{i}"), "moe") for i in range(cfg.n_layers))
         return
-    with pytest.raises(NotImplementedError):
-        DecisionTransformer(cfg, device="cpu")
+    dense = DecisionTransformer(DTConfig(**dataclasses.asdict(TINY)), device="cpu")
+    model.load_state_dict(dense.state_dict(), strict=True)
+    batch = [torch.from_numpy(x) for x in _batch(0, TINY, 2)]
+    batch[2], batch[3] = batch[2].long(), batch[3].long()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="use_mesh"):
+            model(*batch)
+        model.use_mesh(make_mesh(axis_names=("seq",)))
+        torch.testing.assert_close(model(*batch), dense(*batch), atol=LOGIT_ATOL_F32, rtol=0)
 
 
 def test_converter_layouts():

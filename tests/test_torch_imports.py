@@ -16,7 +16,9 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "tensorboard", "mmtrl_tpu"}
 SCRIPTS = [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_serve.py",
-           REPO / "tools" / "count_classic_ops.py", REPO / "tools" / "count_level_ops.py"]
+           REPO / "tools" / "count_classic_ops.py", REPO / "tools" / "count_level_ops.py",
+           # the rank processes of tests/test_torch_parallel.py
+           REPO / "tests" / "torch_parallel_worker.py"]
 SOURCES = sorted((REPO / "mmtrl_tpu_torch").rglob("*.py")) + SCRIPTS
 
 
@@ -60,7 +62,11 @@ CLASSIC_MODULES = [
     # the run tooling: the journal, its readers, video, profiling, the tuner
     "wandb_local", "resume", "reproduce", "video", "profiling", "plot", "plot_individual",
     "paper_plot", "tuner", "visualize", "benchmark", "queue_runner", "submit_exp",
-    "docker_build", "add_header")]
+    "docker_build", "add_header")] + [
+    # the multi-device axes
+    "core/distributed.py"] + [f"parallel/{name}.py" for name in (
+        "__init__", "mesh", "collectives", "sharding", "ring_attention", "seq_composed",
+        "expert", "pipeline")]
 # imported only inside the functions that draw (matplotlib) or nowhere;
 # the card's machine has none of them
 BLOCKED = ("PIL", "tensorboard", "matplotlib", "optuna")
@@ -71,7 +77,8 @@ def test_classic_modules_are_scanned(name):
     """The later slices' modules (classic control, discrete and continuous;
     procmaze and the two-agent env; Doorpuzzle and the two-player Pong; the
     native pools' fused surface and the two raw bridges; the gymnasium
-    bridge, the off-policy host loop and the tools) are
+    bridge, the off-policy host loop and the tools; the run tooling; the
+    multi-device axes) are
     among the scanned sources, so the two tests above cover them."""
     assert REPO / "mmtrl_tpu_torch" / name in SOURCES
 
